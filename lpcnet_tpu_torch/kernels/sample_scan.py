@@ -1,0 +1,214 @@
+"""The 16 kHz autoregressive synthesis loop in plain PyTorch, batched over
+streams: the twin of lpcnet_tpu/kernels/sample_scan.py (free-run branch)
+and the oracle for the CUDA frame kernel (csrc/sample_frame.cu).
+
+Per sample, per stream (reference lpcnet.c:235-271, nnet.c:163-214):
+  1. order-16 LPC prediction
+  2. mu-law of the last signal and of the prediction (bit-exact)
+  3. GRU-A input = frame condition + 3 table rows, in the order
+     cond_a + sig + pred + exc (sample_pallas.py:236-242)
+  4. GRU-A (384), 5. GRU-B (16) with the frame condition
+  6. dual-FC 256 logits, two KISS99 draws -> 8 thresholds, 8-bit tree
+     sample, walked or flat (sample_pallas.py:99-127, 258-293)
+  7. pcm = pred + ULAW2LIN[exc]; de-emphasis, clip, round
+     (sample_pallas.py:308-313)
+
+Every sum runs in the CUDA kernel's order, one rounded float32 operation
+at a time (seq_dot): sequential over the inner index, and the GRU-B input
+product in KSLICE-row slices added in order. On the card the kernel and
+this version then differ only where their transcendental functions do,
+so the autoregressive loop cannot drift apart on a float near-tie. A
+matmul library sums in its own order; that is why this version does not
+call one, and why it is slow: it repeats the kernel's arithmetic and is no
+yardstick of speed.
+
+The state is a dict: gru_a (B,384) f32, gru_b (B,16) f32, last_sig (B,16)
+f32, last_exc (B,) int32, deemph (B,) f32 and rng (B,4) int64 holding the
+JAX package's uint32 KISS99 state.
+"""
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..constants import LPC_ORDER
+from ..models import layers
+from ..ops import activations, kiss99
+from ..ops.mulaw import lin2ulaw, ulaw2lin
+from ..ops.tables import SAMPLING_LOGIT_TABLE
+
+# The flat scorer's static tables (sample_pallas.py:99-127). The 8-bit tree
+# walk visits heap node n_b(c) = 2^b + (c >> (8-b)) at level b and takes bit
+# r_b(c) = (c >> (7-b)) & 1 on the way to leaf c. With cmp[n] = (thr_level(n)
+# < logits[n]) for every heap node, the walked leaf is the unique c with
+# cmp @ D[:, c] == popcount(c), D[n, c] = sum_b [n == n_b(c)] (2 r_b(c) - 1).
+FLAT_SCORE_W = np.zeros((256, 256), np.float32)
+FLAT_TARGET_LEAF = np.zeros((2, 256), np.float32)
+for _c in range(256):
+    for _b in range(8):
+        FLAT_SCORE_W[(1 << _b) + (_c >> (8 - _b)), _c] = \
+            2.0 * ((_c >> (7 - _b)) & 1) - 1.0
+        FLAT_TARGET_LEAF[0, _c] += (_c >> (7 - _b)) & 1
+    FLAT_TARGET_LEAF[1, _c] = _c
+# tree level of each heap node (node 0 is unused and given level 0)
+NODE_LEVEL = np.array([0] + [n.bit_length() - 1 for n in range(1, 256)],
+                      np.int64)
+
+
+# rows of wi_b per partial sum of the GRU-B input product (the kernel's
+# KSLICE: 384 threads = 8 slices x 48 gate columns)
+KSLICE = 48
+
+
+def seq_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., K) @ w (K, N) summed sequentially over k from the first
+    product, each product and sum rounded on its own (no FMA)."""
+    acc = x[..., 0:1] * w[0]
+    for k in range(1, w.shape[0]):
+        acc = acc + x[..., k:k + 1] * w[k]
+    return acc
+
+
+def sliced_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B, K) @ w (K, N) as K/KSLICE sequential partial sums over
+    consecutive row slices, added in slice order."""
+    B, K = x.shape
+    nsl = K // KSLICE
+    xs = x.reshape(B, nsl, KSLICE)
+    ws = w.reshape(nsl, KSLICE, -1)
+    acc = xs[:, :, 0:1] * ws[:, 0]
+    for k in range(1, KSLICE):
+        acc = acc + xs[:, :, k:k + 1] * ws[:, k]
+    out = acc[:, 0]
+    for j in range(1, nsl):
+        out = out + acc[:, j]
+    return out
+
+
+def init_state(batch: int, cfg, rng_seed: Optional[np.ndarray] = None,
+               device=None) -> Dict[str, torch.Tensor]:
+    """Fresh synthesis state (lpcnet_reset, lpcnet.c:174-182)."""
+    if rng_seed is None:
+        rng_seed = kiss99.batched_seed(batch)
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "gru_a": torch.zeros((batch, cfg.gru_a_units), **f32),
+        "gru_b": torch.zeros((batch, cfg.gru_b_units), **f32),
+        "last_sig": torch.zeros((batch, LPC_ORDER), **f32),
+        "last_exc": torch.full((batch,), 128, dtype=torch.int32,
+                               device=device),        # lin2ulaw(0)
+        "deemph": torch.zeros((batch,), **f32),
+        "rng": kiss99.to_tensor(rng_seed, device),
+    }
+
+
+def _thresholds(rng: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two KISS99 draws -> (B, 8) sampling thresholds (bytes of the draws,
+    low byte first, through SAMPLING_LOGIT_TABLE) and the new rng."""
+    tbl = torch.as_tensor(SAMPLING_LOGIT_TABLE, device=rng.device)
+    rng, r1 = kiss99.kiss99_next(rng)
+    rng, r2 = kiss99.kiss99_next(rng)
+    byts = [(r >> (8 * k)) & 0xFF for r in (r1, r2) for k in range(4)]
+    return tbl[torch.stack(byts, dim=-1)], rng
+
+
+def _sample_tree(logits: torch.Tensor, rng: torch.Tensor):
+    """Hierarchical 8-bit sampling by walking the tree (sample_mdense,
+    nnet.c:163-214). logits: (B, 256) before sigmoid. Returns (exc (B,)
+    int32, new rng)."""
+    thr, rng = _thresholds(rng)
+    val = torch.zeros(logits.shape[:-1], dtype=torch.int64,
+                      device=logits.device)
+    for b in range(8):
+        logit = torch.gather(logits, -1, (val | (1 << b))[..., None])[..., 0]
+        val = (val << 1) | (thr[..., b] < logit).to(torch.int64)
+    return val.to(torch.int32), rng
+
+
+def _sample_flat(logits: torch.Tensor, rng: torch.Tensor):
+    """The same sample, scoring the tree flat: compare every heap node with
+    its level's threshold, one product with FLAT_SCORE_W scores all 256
+    leaves, the walked leaf is the one whose score is its popcount. All
+    operands are small integers, so the product is exact."""
+    thr, rng = _thresholds(rng)
+    dev = logits.device
+    thr_cols = thr[:, torch.as_tensor(NODE_LEVEL, device=dev)]
+    cmp = (thr_cols < logits).to(torch.float32)
+    dots = cmp @ torch.as_tensor(FLAT_SCORE_W, device=dev)
+    tgt = torch.as_tensor(FLAT_TARGET_LEAF, device=dev)
+    exc = torch.where(dots == tgt[0], tgt[1], 0.0).sum(-1)
+    return exc.to(torch.int32), rng
+
+
+def sample_step(tables: Dict[str, Any], state: Dict[str, torch.Tensor],
+                cond_a: torch.Tensor, cond_b: torch.Tensor,
+                lpc: torch.Tensor, approx: bool, preemph: float,
+                flat: bool = False):
+    """One 1/16000 s step for all streams (free-run). cond_*: (B, 3N),
+    lpc: (B, 16). Returns (new_state, out (B,) rounded samples)."""
+    # 1. LPC prediction (lpcnet.c:252)
+    prod = state["last_sig"] * lpc
+    acc = prod[:, 0]
+    for k in range(1, LPC_ORDER):
+        acc = acc + prod[:, k]
+    pred = -acc
+    # 2-4. GRU-A from three table rows + the frame condition
+    lsu = lin2ulaw(state["last_sig"][:, 0]).long()
+    pu = lin2ulaw(pred).long()
+    zrh_a = (cond_a + tables["tbl_sig"][lsu] + tables["tbl_pred"][pu]
+             + tables["tbl_exc"][state["last_exc"].long()])
+    h = state["gru_a"]
+    gru_a = layers.gru_gates(h, zrh_a,
+                             seq_dot(h, tables["wr_a"]) + tables["br_a"],
+                             approx=approx)
+    # 5. GRU-B
+    zrh_b = cond_b + sliced_dot(gru_a, tables["wi_b"])
+    h = state["gru_b"]
+    gru_b = layers.gru_gates(h, zrh_b,
+                             seq_dot(h, tables["wr_b"]) + tables["br_b"],
+                             approx=approx)
+    # 6. dual-FC logits + tree sample
+    dfc = tables["dual_fc"]
+    act = activations.get("tanh", approx)
+    y1, y2 = (act(seq_dot(gru_b, dfc["w"][c]) + dfc["b"][c])
+              * dfc["factor"][c] for c in (0, 1))
+    logits = y1 + y2
+    exc, rng = (_sample_flat if flat else _sample_tree)(logits, state["rng"])
+    # 7. excitation -> signal, de-emphasis, clip, round (lpcnet.c:260-269)
+    pcm = pred + ulaw2lin(exc)
+    last_sig = torch.cat([pcm[:, None], state["last_sig"][:, :-1]], dim=-1)
+    deemph = pcm + preemph * state["deemph"]
+    out = torch.floor(0.5 + torch.clamp(deemph, -32767.0, 32767.0))
+    return {"gru_a": gru_a, "gru_b": gru_b, "last_sig": last_sig,
+            "last_exc": exc, "deemph": deemph, "rng": rng}, out
+
+
+def synthesize_frame(tables: Dict[str, Any], state: Dict[str, torch.Tensor],
+                     cond_a: torch.Tensor, cond_b: torch.Tensor,
+                     lpc: torch.Tensor, cfg, flat: bool = False):
+    """frame_size free-run steps under one frame's conditions.
+    Returns (new_state, pcm (B, frame_size))."""
+    outs = []
+    for _ in range(cfg.frame_size):
+        state, out = sample_step(tables, state, cond_a, cond_b, lpc,
+                                 cfg.approx, cfg.preemph, flat=flat)
+        outs.append(out)
+    return state, torch.stack(outs, dim=1)
+
+
+def synthesize_frames(tables: Dict[str, Any], state: Dict[str, torch.Tensor],
+                      conds: Dict[str, torch.Tensor], cfg,
+                      flat: bool = False
+                      ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """Free-run synthesis of T frames for B streams.
+
+    conds: cond_a (B,T,3Na), cond_b (B,T,3Nb), lpc (B,T,16) [frame rate].
+    Returns (new_state, pcm (B, T*frame_size) float32 rounded samples)."""
+    B, T = conds["cond_a"].shape[:2]
+    pcm = []
+    for t in range(T):
+        state, p = synthesize_frame(tables, state, conds["cond_a"][:, t],
+                                    conds["cond_b"][:, t],
+                                    conds["lpc"][:, t], cfg, flat=flat)
+        pcm.append(p)
+    return state, torch.cat(pcm, dim=1).reshape(B, T * cfg.frame_size)

@@ -1,0 +1,109 @@
+"""The spectral DSP that frame conditioning needs: inverse DCT, band gain
+interpolation, inverse FFT and Levinson-Durbin LPC (the port of the
+matching parts of lpcnet_tpu/ops/dsp.py, reference src/freq.c).
+
+All functions are batched over arbitrary leading dims.
+"""
+import numpy as np
+import torch
+
+from ..constants import FREQ_SIZE, LPC_ORDER, NB_BANDS, WINDOW_SIZE
+from .tables import BAND_INTERP, COMPENSATION, DCT_TABLE
+
+_DCT_SCALE = float(np.float32(np.sqrt(2.0 / NB_BANDS)))
+_NBINS = BAND_INTERP.shape[0]  # 160 interpolated FFT bins
+# lag window of lpc_from_bands (freq.c:293-295)
+_LAG = (1.0 - 6e-5 * np.arange(1, LPC_ORDER + 1, dtype=np.float32) ** 2)
+
+
+def _t(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(a, device=like.device)
+
+
+def idct(x: torch.Tensor) -> torch.Tensor:
+    """Inverse DCT (freq.c:230-240). x: (..., 18)."""
+    return (x.to(torch.float32) @ _t(DCT_TABLE, x).T) * _DCT_SCALE
+
+
+def interp_band_gain(bandE: torch.Tensor) -> torch.Tensor:
+    """Spread 18 band values to 161 bins (freq.c:202-215). Last bin = 0."""
+    g = bandE.to(torch.float32) @ _t(BAND_INTERP, bandE).T
+    return torch.nn.functional.pad(g, (0, FREQ_SIZE - _NBINS))
+
+
+def inverse_transform(X: torch.Tensor) -> torch.Tensor:
+    """Inverse FFT wrapper (freq.c:256-273): WINDOW_SIZE * irfft(X).
+    X: (..., FREQ_SIZE) complex -> (..., WINDOW_SIZE) float32."""
+    return WINDOW_SIZE * torch.fft.irfft(X, n=WINDOW_SIZE, dim=-1).to(
+        torch.float32)
+
+
+def levinson(ac: torch.Tensor):
+    """Levinson-Durbin, order LPC_ORDER (lpcn_lpc, freq.c:86-127).
+
+    ac: (..., LPC_ORDER+1) autocorrelation. Returns (lpc, rc, error) with
+    lpc/rc (..., LPC_ORDER). Keeps the reference's early exit at 30 dB
+    prediction gain (error < .001*ac[0]) as a per-row `done` mask, and the
+    ac[0]==0 guard (such rows never update)."""
+    ac = ac.to(torch.float32)
+    p = LPC_ORDER
+    lpc = torch.zeros(ac.shape[:-1] + (p,), dtype=torch.float32,
+                      device=ac.device)
+    rc = torch.zeros_like(lpc)
+    error = ac[..., 0]
+    done = error == 0
+    for i in range(p):
+        # rr = sum_{j<i} lpc[j] * ac[i-j] + ac[i+1]
+        if i > 0:
+            rr = (lpc[..., :i] * ac[..., 1:i + 1].flip(-1)).sum(-1) \
+                + ac[..., i + 1]
+        else:
+            rr = ac[..., 1]
+        safe_err = torch.where(error == 0, torch.ones_like(error), error)
+        r = -rr / safe_err
+        # lpc[k] += r*lpc[i-1-k] for k < i, all from pre-update values
+        new_lpc = lpc.clone()
+        if i > 0:
+            new_lpc[..., :i] = lpc[..., :i] + r[..., None] * lpc[..., :i].flip(-1)
+        new_lpc[..., i] = r
+        new_rc = rc.clone()
+        new_rc[..., i] = r
+        new_err = error - r * r * error
+        nd = ~done
+        lpc = torch.where(nd[..., None], new_lpc, lpc)
+        rc = torch.where(nd[..., None], new_rc, rc)
+        error = torch.where(nd, new_err, error)
+        # break AFTER the update when error < .001*ac[0] (freq.c:121-123)
+        done = done | (error < 0.001 * ac[..., 0])
+    return lpc, rc, error
+
+
+def lpc_from_bands(Ex: torch.Tensor):
+    """Band energies -> LPC via autocorrelation (freq.c:275-297).
+
+    Ex: (..., NB_BANDS). Returns (lpc, error)."""
+    Xr = interp_band_gain(Ex)
+    x_auto = inverse_transform(Xr.to(torch.complex64))
+    ac = x_auto[..., :LPC_ORDER + 1]
+    # -40 dB noise floor; the reference writes 320/12/38. with C integer
+    # division: 320/12 == 26, so the floor constant is 26/38 (freq.c:292).
+    floor_c = float(np.float32(26.0 / 38.0))
+    ac0 = ac[..., 0] + ac[..., 0] * 1e-4 + floor_c
+    ac = torch.cat([ac0[..., None], ac[..., 1:] * _t(_LAG, ac)], dim=-1)
+    lpc, _, err = levinson(ac)
+    return lpc, err
+
+
+def lpc_from_cepstrum(cepstrum: torch.Tensor):
+    """18 cepstral coeffs -> 16 LPC (freq.c:310-320). cepstrum: (..., >=18)."""
+    tmp = cepstrum[..., :NB_BANDS].to(torch.float32).clone()
+    tmp[..., 0] += 4.0
+    Ex = idct(tmp)
+    Ex = torch.pow(10.0, Ex) * _t(COMPENSATION, Ex)
+    return lpc_from_bands(Ex)
+
+
+def lpc_weighting(lpc: torch.Tensor, gamma: float) -> torch.Tensor:
+    """Bandwidth expansion lpc[i] *= gamma^(i+1) (freq.c:299-308)."""
+    g = gamma ** np.arange(1, LPC_ORDER + 1, dtype=np.float32)
+    return lpc * _t(g.astype(np.float32), lpc)

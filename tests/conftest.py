@@ -13,6 +13,11 @@ jax.config.update("jax_num_cpu_devices", 8)
 jax.config.update("jax_enable_x64", False)
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skips where there is none")
+
+
 def ref_build_skip(msg: str):
     """Reference-build failure policy for the parity harnesses: skip by
     default (the suite must pass without a C toolchain), but HARD FAIL under
