@@ -13,8 +13,9 @@ import torch
 from .device import resolve_device
 from .utils import weights_io
 
-DEFAULT_LPCNET = os.path.join(os.path.dirname(__file__), os.pardir,
-                              "examples", "speech_lpcnet_params.bin")
+_EXAMPLES = os.path.join(os.path.dirname(__file__), os.pardir, "examples")
+DEFAULT_LPCNET = os.path.join(_EXAMPLES, "speech_lpcnet_params.bin")
+DEFAULT_PLC = os.path.join(_EXAMPLES, "speech_plc_params.bin")
 
 
 def params_from_numpy(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
@@ -41,4 +42,11 @@ def load_lpcnet(path: Optional[str] = None, device=None) -> Dict[str, Any]:
     """Vocoder parameters from a save_params checkpoint; path None loads
     the shipped examples/speech_lpcnet_params.bin."""
     return params_from_numpy(weights_io.load_params(path or DEFAULT_LPCNET),
+                             device)
+
+
+def load_plc(path: Optional[str] = None, device=None) -> Dict[str, Any]:
+    """PLC-network parameters from a save_params checkpoint; path None
+    loads the shipped examples/speech_plc_params.bin."""
+    return params_from_numpy(weights_io.load_params(path or DEFAULT_PLC),
                              device)

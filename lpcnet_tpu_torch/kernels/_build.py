@@ -2,8 +2,9 @@
 shared libraries with a plain C interface, loaded with ctypes.
 
 A library lands in build/lpcnet_tpu_torch/ at the root of the checkout,
-named after its source and a hash of the source and the flags, so a changed
-source builds anew and an unchanged one is reused. Only a machine with the
+named after its source and a hash of the source, of every csrc/ header it
+includes and of the flags, so a changed source or header builds anew and an
+unchanged one is reused. Only a machine with the
 CUDA toolkit and a card builds; nothing here runs at import time.
 
 Flags: sm_90a code, -O3, no fast math, and --fmad=false, so that nvcc
@@ -14,10 +15,11 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -39,10 +41,29 @@ def nvcc_path() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def source_files(name: str) -> List[str]:
+    """csrc/<name>.cu and every file under csrc/ that it includes with
+    quotes, directly or through another such file."""
+    files, todo = [], [name + ".cu"]
+    while todo:
+        rel = todo.pop()
+        path = os.path.join(CSRC_DIR, rel)
+        if path in files:
+            continue
+        files.append(path)
+        with open(path, "rb") as f:
+            todo += [m.decode() for m in _INCLUDE.findall(f.read())]
+    return files
+
+
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in source_files(name):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -1,18 +1,20 @@
-"""The frame sample kernel (csrc/sample_frame.cu) bound to PyTorch: the
-counterpart of synthesize_frame_pallas / synthesize_frames_pallas in
-lpcnet_tpu/kernels/sample_pallas.py.
+"""The sample kernels (csrc/sample_frame.cu, csrc/synth_samples.cu,
+csrc/teacher_advance.cu) bound to PyTorch: the counterparts of
+synthesize_frame(s)_pallas, synth_samples_pallas and teacher_advance_pallas
+in lpcnet_tpu/kernels/sample_pallas.py.
 
 For tensors on the CPU the functions run the plain PyTorch version
-(kernels/sample_scan.py). For CUDA tensors they launch the kernel, one
-launch per frame on the current stream, or raise; there is no fallback.
-`launches[variant]` counts kernel launches of each sampler variant (and
-nothing else), so a run can show that it went through the kernel.
+(kernels/sample_scan.py). For CUDA tensors they launch the kernel on the
+current stream, or raise; there is no fallback. `launches[name]` counts
+kernel launches (and nothing else), so a run can show that it went through
+the kernels: 'flat' / 'base' for the free-run frame kernel with either
+sampler, 'tf_flat' / 'tf_base' for synth_samples, 'teacher' for
+teacher_advance.
 
-The state dict layout is sample_scan's. The returned state is new memory:
-the kernel updates it in place from frame to frame.
+The state dict layout is sample_scan's. The returned state is new memory.
 """
 import ctypes
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -23,38 +25,74 @@ from ..ops.tables import SAMPLING_LOGIT_TABLE
 from . import _build, sample_scan
 
 VARIANTS = ("flat", "base")
-# the widths the kernel is compiled for (csrc/sample_frame.cu)
+# the widths the kernels are compiled for (csrc/lpcnet_sample.cuh)
 NA, NB, NL = GRU_A_SIZE, GRU_B_SIZE, DUAL_FC_OUT
 
-launches = {"flat": 0, "base": 0}
+launches = {"flat": 0, "base": 0, "tf_flat": 0, "tf_base": 0, "teacher": 0}
+
+_WEIGHTS = ("tbl_sig", "tbl_pred", "tbl_exc", "wr_a", "br_a", "wi_b", "wr_b",
+            "br_b")
 
 
 class _Params(ctypes.Structure):
-    """ctypes twin of LpcnetFrameParams in csrc/sample_frame.cu."""
+    """ctypes twin of LpcnetFrameParams in csrc/lpcnet_sample.cuh."""
     _fields_ = (
         [(n, ctypes.c_void_p) for n in ("cond_a", "cond_b", "lpc")]
         + [(n, ctypes.c_longlong)
            for n in ("ca_stride", "cb_stride", "lpc_stride")]
-        + [(n, ctypes.c_void_p) for n in (
-            "tbl_sig", "tbl_pred", "tbl_exc", "wr_a", "br_a", "wi_b", "wr_b",
-            "br_b", "dfc_w", "dfc_b", "dfc_f", "logit_tbl",
+        + [(n, ctypes.c_void_p) for n in _WEIGHTS + (
+            "dfc_w", "dfc_b", "dfc_f", "logit_tbl",
             "gru_a_in", "gru_b_in", "sig_in", "exc_in", "deemph_in",
             "rng_in", "gru_a_out", "gru_b_out", "sig_out", "exc_out",
             "deemph_out", "rng_out", "pcm")]
-        + [("pcm_stride", ctypes.c_longlong), ("batch", ctypes.c_int),
+        + [("pcm_stride", ctypes.c_longlong), ("target", ctypes.c_void_p),
+           ("tgt_stride", ctypes.c_longlong), ("preload", ctypes.c_void_p),
+           ("force_from", ctypes.c_void_p), ("n_active", ctypes.c_void_p),
+           ("batch", ctypes.c_int), ("nsamples", ctypes.c_int),
            ("preemph", ctypes.c_float)])
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("sample_frame")
+class _TeacherParams(ctypes.Structure):
+    """ctypes twin of LpcnetTeacherParams in csrc/teacher_advance.cu."""
+    _fields_ = (
+        [(n, ctypes.c_void_p) for n in ("cond_a", "cond_b") + _WEIGHTS + (
+            "idx_sig", "idx_pred", "idx_exc", "gru_a_in", "gru_b_in",
+            "gru_a_out", "gru_b_out")]
+        + [("batch", ctypes.c_int), ("nsamples", ctypes.c_int)])
+
+
+def _lib(name: str, fn: str, params) -> ctypes.CDLL:
+    """The built library of csrc/<name>.cu with its entry point typed."""
+    lib = _build.load(name)
     if not getattr(lib, "_lpcnet_typed", False):
-        lib.lpcnet_sample_frame.argtypes = [ctypes.POINTER(_Params),
-                                            ctypes.c_int, ctypes.c_void_p]
-        lib.lpcnet_sample_frame.restype = ctypes.c_int
+        entry = getattr(lib, fn)
+        entry.argtypes = [ctypes.POINTER(params)] + (
+            [ctypes.c_void_p] if params is _TeacherParams
+            else [ctypes.c_int, ctypes.c_void_p])
+        entry.restype = ctypes.c_int
         lib.lpcnet_cuda_error_string.argtypes = [ctypes.c_int]
         lib.lpcnet_cuda_error_string.restype = ctypes.c_char_p
         lib._lpcnet_typed = True
     return lib
+
+
+def _raise_on(err: int, lib: ctypes.CDLL, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           + lib.lpcnet_cuda_error_string(err).decode())
+
+
+_logit_tbls: Dict[torch.device, torch.Tensor] = {}
+
+
+def _logit_tbl(device: torch.device) -> torch.Tensor:
+    """(2, 256) SAMPLING_LOGIT_TABLE and ULAW2LIN_TABLE, one copy kept on
+    each device."""
+    if device not in _logit_tbls:
+        _logit_tbls[device] = torch.stack(
+            [torch.as_tensor(SAMPLING_LOGIT_TABLE),
+             torch.as_tensor(ULAW2LIN_TABLE)]).to(device)
+    return _logit_tbls[device]
 
 
 def _check(name: str, t: torch.Tensor, shape, dtype, device):
@@ -72,25 +110,75 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device):
 def _check_cfg(cfg):
     if (cfg.gru_a_units, cfg.gru_b_units, cfg.pcm_levels, cfg.frame_size,
             cfg.lpc_order) != (NA, NB, NL, FRAME_SIZE, LPC_ORDER):
-        raise ValueError("the CUDA frame kernel is compiled for GRU-A 384, "
-                         "GRU-B 16, 256 levels and 160-sample frames")
+        raise ValueError("the CUDA sample kernels are compiled for GRU-A "
+                         "384, GRU-B 16, 256 levels and 160-sample frames")
     if cfg.approx:
-        raise ValueError("the CUDA frame kernel computes exact activations; "
-                         "cfg.approx needs the CPU path")
+        raise ValueError("the CUDA sample kernels compute exact "
+                         "activations; cfg.approx needs the CPU path")
+
+
+_WEIGHT_SHAPES = ((NL, 3 * NA),) * 3 + (
+    (NA, 3 * NA), (3 * NA,), (NA, 3 * NB), (NB, 3 * NB), (3 * NB,))
+
+
+def _check_weights(tables, device, dual_fc=True):
+    f32 = torch.float32
+    for name, shape in zip(_WEIGHTS, _WEIGHT_SHAPES):
+        _check(name, tables[name], shape, f32, device)
+    if dual_fc:
+        dfc = tables["dual_fc"]
+        _check("dual_fc.w", dfc["w"], (2, NB, NL), f32, device)
+        _check("dual_fc.b", dfc["b"], (2, NL), f32, device)
+        _check("dual_fc.factor", dfc["factor"], (2, NL), f32, device)
+
+
+def _check_state(state, batch: int, device):
+    f32 = torch.float32
+    _check("gru_a", state["gru_a"], (batch, NA), f32, device)
+    _check("gru_b", state["gru_b"], (batch, NB), f32, device)
+    _check("last_sig", state["last_sig"], (batch, LPC_ORDER), f32, device)
+    _check("deemph", state["deemph"], (batch,), f32, device)
+    _check("last_exc", state["last_exc"], (batch,), torch.int32, device)
+    _check("rng", state["rng"], (batch, 4), torch.int64, device)
+
+
+def _sample_params(tables, state, new, pcm, batch, nsamples, cfg) -> _Params:
+    """The argument block of the sample loop but for its conditions."""
+    dfc = tables["dual_fc"]
+    return _Params(
+        **{k: tables[k].data_ptr() for k in _WEIGHTS},
+        dfc_w=dfc["w"].data_ptr(), dfc_b=dfc["b"].data_ptr(),
+        dfc_f=dfc["factor"].data_ptr(),
+        logit_tbl=_logit_tbl(pcm.device).data_ptr(),
+        gru_a_in=state["gru_a"].data_ptr(),
+        gru_b_in=state["gru_b"].data_ptr(),
+        sig_in=state["last_sig"].data_ptr(),
+        exc_in=state["last_exc"].data_ptr(),
+        deemph_in=state["deemph"].data_ptr(), rng_in=state["rng"].data_ptr(),
+        gru_a_out=new["gru_a"].data_ptr(), gru_b_out=new["gru_b"].data_ptr(),
+        sig_out=new["last_sig"].data_ptr(),
+        exc_out=new["last_exc"].data_ptr(),
+        deemph_out=new["deemph"].data_ptr(), rng_out=new["rng"].data_ptr(),
+        pcm=pcm.data_ptr(), pcm_stride=pcm.stride(0), batch=batch,
+        nsamples=nsamples, preemph=cfg.preemph)
+
+
+def _variant_flat(variant: str) -> bool:
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, not {variant!r}")
+    return variant == "flat"
 
 
 def synthesize_frames(tables: Dict[str, Any], state: Dict[str, torch.Tensor],
                       conds: Dict[str, torch.Tensor], cfg,
                       variant: str = "flat"
                       ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-    """Free-run synthesis of T frames for B streams.
+    """Free-run synthesis of T frames for B streams, one launch per frame.
 
     conds: cond_a (B,T,3Na), cond_b (B,T,3Nb), lpc (B,T,16). variant: 'flat'
     (flat sampling tree, K1) or 'base' (walked tree, K2); the two give the
     same bits. Returns (new_state, pcm (B, T*160) float32)."""
-    if variant not in VARIANTS:
-        raise ValueError(f"variant must be one of {VARIANTS}, not {variant!r}")
-    flat = variant == "flat"
+    flat = _variant_flat(variant)
     device = conds["cond_a"].device
     if device.type == "cpu":
         return sample_scan.synthesize_frames(tables, state, conds, cfg,
@@ -99,74 +187,36 @@ def synthesize_frames(tables: Dict[str, Any], state: Dict[str, torch.Tensor],
         raise ValueError(f"no frame kernel for device {device}")
     _check_cfg(cfg)
     B, T = conds["cond_a"].shape[:2]
-    f32, dfc = torch.float32, tables["dual_fc"]
-    for name, t, shape in (
-            ("cond_a", conds["cond_a"], (B, T, 3 * NA)),
-            ("cond_b", conds["cond_b"], (B, T, 3 * NB)),
-            ("lpc", conds["lpc"], (B, T, LPC_ORDER)),
-            ("tbl_sig", tables["tbl_sig"], (NL, 3 * NA)),
-            ("tbl_pred", tables["tbl_pred"], (NL, 3 * NA)),
-            ("tbl_exc", tables["tbl_exc"], (NL, 3 * NA)),
-            ("wr_a", tables["wr_a"], (NA, 3 * NA)),
-            ("br_a", tables["br_a"], (3 * NA,)),
-            ("wi_b", tables["wi_b"], (NA, 3 * NB)),
-            ("wr_b", tables["wr_b"], (NB, 3 * NB)),
-            ("br_b", tables["br_b"], (3 * NB,)),
-            ("dual_fc.w", dfc["w"], (2, NB, NL)),
-            ("dual_fc.b", dfc["b"], (2, NL)),
-            ("dual_fc.factor", dfc["factor"], (2, NL)),
-            ("gru_a", state["gru_a"], (B, NA)),
-            ("gru_b", state["gru_b"], (B, NB)),
-            ("last_sig", state["last_sig"], (B, LPC_ORDER)),
-            ("deemph", state["deemph"], (B,))):
-        _check(name, t, shape, f32, device)
-    _check("last_exc", state["last_exc"], (B,), torch.int32, device)
-    _check("rng", state["rng"], (B, 4), torch.int64, device)
+    f32 = torch.float32
+    _check("cond_a", conds["cond_a"], (B, T, 3 * NA), f32, device)
+    _check("cond_b", conds["cond_b"], (B, T, 3 * NB), f32, device)
+    _check("lpc", conds["lpc"], (B, T, LPC_ORDER), f32, device)
+    _check_weights(tables, device)
+    _check_state(state, B, device)
 
     if T == 0:
         return ({k: v.clone() for k, v in state.items()},
                 torch.empty((B, 0), dtype=f32, device=device))
-    lib = _lib()
-    logit_tbl = torch.stack([torch.as_tensor(SAMPLING_LOGIT_TABLE),
-                             torch.as_tensor(ULAW2LIN_TABLE)]).to(device)
+    lib = _lib("sample_frame", "lpcnet_sample_frame", _Params)
     new = {k: torch.empty_like(v) for k, v in state.items()}
     pcm = torch.empty((B, T * FRAME_SIZE), dtype=f32, device=device)
-    p = _Params(
-        ca_stride=T * 3 * NA, cb_stride=T * 3 * NB, lpc_stride=T * LPC_ORDER,
-        tbl_sig=tables["tbl_sig"].data_ptr(),
-        tbl_pred=tables["tbl_pred"].data_ptr(),
-        tbl_exc=tables["tbl_exc"].data_ptr(),
-        wr_a=tables["wr_a"].data_ptr(), br_a=tables["br_a"].data_ptr(),
-        wi_b=tables["wi_b"].data_ptr(), wr_b=tables["wr_b"].data_ptr(),
-        br_b=tables["br_b"].data_ptr(), dfc_w=dfc["w"].data_ptr(),
-        dfc_b=dfc["b"].data_ptr(), dfc_f=dfc["factor"].data_ptr(),
-        logit_tbl=logit_tbl.data_ptr(),
-        gru_a_out=new["gru_a"].data_ptr(), gru_b_out=new["gru_b"].data_ptr(),
-        sig_out=new["last_sig"].data_ptr(),
-        exc_out=new["last_exc"].data_ptr(),
-        deemph_out=new["deemph"].data_ptr(), rng_out=new["rng"].data_ptr(),
-        pcm_stride=T * FRAME_SIZE, batch=B, preemph=cfg.preemph)
+    p = _sample_params(tables, state, new, pcm, B, FRAME_SIZE, cfg)
+    p.ca_stride, p.cb_stride = T * 3 * NA, T * 3 * NB
+    p.lpc_stride = T * LPC_ORDER
     stream = torch.cuda.current_stream(device).cuda_stream
-    src = state
     with torch.cuda.device(device):
         for t in range(T):
             p.cond_a = conds["cond_a"].data_ptr() + 4 * t * 3 * NA
             p.cond_b = conds["cond_b"].data_ptr() + 4 * t * 3 * NB
             p.lpc = conds["lpc"].data_ptr() + 4 * t * LPC_ORDER
             p.pcm = pcm.data_ptr() + 4 * t * FRAME_SIZE
-            p.gru_a_in = src["gru_a"].data_ptr()
-            p.gru_b_in = src["gru_b"].data_ptr()
-            p.sig_in = src["last_sig"].data_ptr()
-            p.exc_in = src["last_exc"].data_ptr()
-            p.deemph_in = src["deemph"].data_ptr()
-            p.rng_in = src["rng"].data_ptr()
-            err = lib.lpcnet_sample_frame(ctypes.byref(p), int(flat), stream)
-            if err != 0:
-                raise RuntimeError(
-                    "sample_frame kernel launch failed: "
-                    + lib.lpcnet_cuda_error_string(err).decode())
+            _raise_on(lib.lpcnet_sample_frame(ctypes.byref(p), int(flat),
+                                              stream), lib, "sample_frame")
             launches[variant] += 1
-            src = new
+            # later frames update the new state in place
+            p.gru_a_in, p.gru_b_in = p.gru_a_out, p.gru_b_out
+            p.sig_in, p.exc_in = p.sig_out, p.exc_out
+            p.deemph_in, p.rng_in = p.deemph_out, p.rng_out
     return new, pcm
 
 
@@ -179,3 +229,149 @@ def synthesize_frame(tables: Dict[str, Any], state: Dict[str, torch.Tensor],
              "cond_b": cond_b[:, None].contiguous(),
              "lpc": lpc[:, None].contiguous()}
     return synthesize_frames(tables, state, conds, cfg, variant=variant)
+
+
+def _check_cond(cond, batch: int, device):
+    f32 = torch.float32
+    _check("cond_a", cond["cond_a"], (batch, 3 * NA), f32, device)
+    _check("cond_b", cond["cond_b"], (batch, 3 * NB), f32, device)
+    _check("lpc", cond["lpc"], (batch, LPC_ORDER), f32, device)
+
+
+def synth_samples(tables: Dict[str, Any], state: Dict[str, torch.Tensor],
+                  cond: Dict[str, torch.Tensor], cfg, nsamples: int,
+                  target: Optional[torch.Tensor] = None,
+                  preload: Optional[torch.Tensor] = None,
+                  n_active: Optional[torch.Tensor] = None,
+                  force_from: Optional[torch.Tensor] = None,
+                  variant: str = "flat"
+                  ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """`nsamples` steps under one condition set with optional teacher
+    forcing and per-stream active counts, in one launch (K3); the
+    arguments are sample_scan.synth_samples's.
+
+    cond: cond_a (B,3Na), cond_b (B,3Nb), lpc (B,16); target (B, nsamples)
+    float32; preload, n_active, force_from (B,) int32.
+    Returns (new_state, (B, nsamples) float32)."""
+    flat = _variant_flat(variant)
+    device = cond["cond_a"].device
+    if device.type == "cpu":
+        return sample_scan.synth_samples(
+            tables, state, cond, cfg, nsamples, target=target,
+            preload=preload, n_active=n_active, force_from=force_from,
+            flat=flat)
+    if device.type != "cuda":
+        raise ValueError(f"no sample kernel for device {device}")
+    _check_cfg(cfg)
+    if nsamples <= 0:
+        raise ValueError(f"nsamples must be positive, not {nsamples}")
+    B = cond["cond_a"].shape[0]
+    _check_cond(cond, B, device)
+    _check_weights(tables, device)
+    _check_state(state, B, device)
+    i32 = torch.int32
+    if target is None:
+        if preload is not None or force_from is not None:
+            raise ValueError("preload and force_from need a target")
+    else:
+        _check("target", target, (B, nsamples), torch.float32, device)
+        # the defaults of sample_scan.synth_samples, as tensors
+        if preload is None:
+            preload = torch.full((B,), 0 if force_from is not None
+                                 else nsamples, dtype=i32, device=device)
+        if force_from is None:
+            force_from = torch.full((B,), nsamples, dtype=i32, device=device)
+    for name, t in (("preload", preload), ("n_active", n_active),
+                    ("force_from", force_from)):
+        if t is not None:
+            _check(name, t, (B,), i32, device)
+
+    lib = _lib("synth_samples", "lpcnet_synth_samples", _Params)
+    new = {k: torch.empty_like(v) for k, v in state.items()}
+    pcm = torch.empty((B, nsamples), dtype=torch.float32, device=device)
+    p = _sample_params(tables, state, new, pcm, B, nsamples, cfg)
+    p.cond_a, p.ca_stride = cond["cond_a"].data_ptr(), 3 * NA
+    p.cond_b, p.cb_stride = cond["cond_b"].data_ptr(), 3 * NB
+    p.lpc, p.lpc_stride = cond["lpc"].data_ptr(), LPC_ORDER
+    if target is not None:
+        p.target, p.tgt_stride = target.data_ptr(), nsamples
+        p.preload, p.force_from = preload.data_ptr(), force_from.data_ptr()
+    if n_active is not None:
+        p.n_active = n_active.data_ptr()
+    with torch.cuda.device(device):
+        _raise_on(lib.lpcnet_synth_samples(
+            ctypes.byref(p), int(flat),
+            torch.cuda.current_stream(device).cuda_stream),
+            lib, "synth_samples")
+    launches["tf_" + variant] += 1
+    return new, pcm
+
+
+def teacher_gru_advance(tables: Dict[str, Any], gru_a: torch.Tensor,
+                        gru_b: torch.Tensor, cond: Dict[str, torch.Tensor],
+                        seqs: Dict[str, torch.Tensor], cfg
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two GRU recurrences over a forced segment in one launch (K4),
+    from the table indices seqs["lsu"], ["pu"], ["exc_prev"] ((B, ns) int32,
+    values in [0, 256)) of sample_scan.teacher_sequences. Returns the new
+    (gru_a, gru_b)."""
+    device = cond["cond_a"].device
+    if device.type == "cpu":
+        return sample_scan.teacher_gru_advance(tables, gru_a, gru_b, cond,
+                                               seqs, cfg)
+    if device.type != "cuda":
+        raise ValueError(f"no teacher-advance kernel for device {device}")
+    _check_cfg(cfg)
+    B = cond["cond_a"].shape[0]
+    f32 = torch.float32
+    _check("cond_a", cond["cond_a"], (B, 3 * NA), f32, device)
+    _check("cond_b", cond["cond_b"], (B, 3 * NB), f32, device)
+    _check_weights(tables, device, dual_fc=False)
+    _check("gru_a", gru_a, (B, NA), f32, device)
+    _check("gru_b", gru_b, (B, NB), f32, device)
+    ns = seqs["lsu"].shape[-1]
+    if ns == 0:
+        raise ValueError("the forced segment is empty")
+    idx = [seqs[k] for k in ("lsu", "pu", "exc_prev")]
+    for name, t in zip(("lsu", "pu", "exc_prev"), idx):
+        _check(name, t, (B, ns), torch.int32, device)
+
+    lib = _lib("teacher_advance", "lpcnet_teacher_advance", _TeacherParams)
+    new_a, new_b = torch.empty_like(gru_a), torch.empty_like(gru_b)
+    p = _TeacherParams(
+        cond_a=cond["cond_a"].data_ptr(), cond_b=cond["cond_b"].data_ptr(),
+        **{k: tables[k].data_ptr() for k in _WEIGHTS},
+        idx_sig=idx[0].data_ptr(), idx_pred=idx[1].data_ptr(),
+        idx_exc=idx[2].data_ptr(), gru_a_in=gru_a.data_ptr(),
+        gru_b_in=gru_b.data_ptr(), gru_a_out=new_a.data_ptr(),
+        gru_b_out=new_b.data_ptr(), batch=B, nsamples=ns)
+    with torch.cuda.device(device):
+        _raise_on(lib.lpcnet_teacher_advance(
+            ctypes.byref(p), torch.cuda.current_stream(device).cuda_stream),
+            lib, "teacher_advance")
+    launches["teacher"] += 1
+    return new_a, new_b
+
+
+def teacher_advance(tables: Dict[str, Any], state: Dict[str, torch.Tensor],
+                    cond: Dict[str, torch.Tensor], cfg, target: torch.Tensor
+                    ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """State advance over a fully teacher-forced segment: the arguments and
+    the result of sample_scan.teacher_advance. The table indices, the
+    non-GRU state and the RNG advance are PyTorch operations on the
+    tensors' device; the two GRU recurrences are one K4 launch on a CUDA
+    device.
+
+    cond: cond_a (B,3Na), cond_b (B,3Nb), lpc (B,16); target (B, ns)
+    float32. Returns (new_state, target)."""
+    device = cond["cond_a"].device
+    if device.type == "cuda":
+        B = cond["cond_a"].shape[0]
+        if target.dim() != 2 or target.shape[1] == 0:
+            raise ValueError("target must be (B, ns) with ns > 0, not "
+                             f"{tuple(target.shape)}")
+        _check_cond(cond, B, device)
+        _check("target", target, (B, target.shape[1]), torch.float32, device)
+        _check_state(state, B, device)
+    return sample_scan.teacher_advance(tables, state, cond, cfg, target,
+                                       gru_advance=teacher_gru_advance)

@@ -1,6 +1,8 @@
 """The 16 kHz autoregressive synthesis loop in plain PyTorch, batched over
-streams: the twin of lpcnet_tpu/kernels/sample_scan.py (free-run branch)
-and the oracle for the CUDA frame kernel (csrc/sample_frame.cu).
+streams: the twin of lpcnet_tpu/kernels/sample_scan.py (free-run, teacher
+forcing, per-stream active counts, the GRU-only teacher advance) and the
+oracle for the CUDA kernels (csrc/sample_frame.cu, csrc/synth_samples.cu,
+csrc/teacher_advance.cu).
 
 Per sample, per stream (reference lpcnet.c:235-271, nnet.c:163-214):
   1. order-16 LPC prediction
@@ -11,7 +13,8 @@ Per sample, per stream (reference lpcnet.c:235-271, nnet.c:163-214):
   6. dual-FC 256 logits, two KISS99 draws -> 8 thresholds, 8-bit tree
      sample, walked or flat (sample_pallas.py:99-127, 258-293)
   7. pcm = pred + ULAW2LIN[exc]; de-emphasis, clip, round
-     (sample_pallas.py:308-313)
+     (sample_pallas.py:308-313); on a teacher-forced step the excitation
+     and the signal come from the target instead (sample_pallas.py:294-315)
 
 Every sum runs in the CUDA kernel's order, one rounded float32 operation
 at a time (seq_dot): sequential over the inner index, and the GRU-B input
@@ -71,8 +74,12 @@ def seq_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def sliced_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (B, K) @ w (K, N) as K/KSLICE sequential partial sums over
-    consecutive row slices, added in slice order."""
+    consecutive row slices, added in slice order. K (the GRU-A width) must
+    be a multiple of KSLICE."""
     B, K = x.shape
+    if K % KSLICE:
+        raise ValueError(f"the GRU-B input product sums in slices of "
+                         f"{KSLICE} rows; gru_a_units={K} is not a multiple")
     nsl = K // KSLICE
     xs = x.reshape(B, nsl, KSLICE)
     ws = w.reshape(nsl, KSLICE, -1)
@@ -140,18 +147,29 @@ def _sample_flat(logits: torch.Tensor, rng: torch.Tensor):
     return exc.to(torch.int32), rng
 
 
+def _lpc_pred(sig: torch.Tensor, lpc: torch.Tensor) -> torch.Tensor:
+    """-sum_k sig[..., k] * lpc[..., k], the 16 products added in order
+    from k = 0 (the most recent sample), as the kernels add them."""
+    prod = sig * lpc
+    acc = prod[..., 0]
+    for k in range(1, LPC_ORDER):
+        acc = acc + prod[..., k]
+    return -acc
+
+
 def sample_step(tables: Dict[str, Any], state: Dict[str, torch.Tensor],
                 cond_a: torch.Tensor, cond_b: torch.Tensor,
                 lpc: torch.Tensor, approx: bool, preemph: float,
-                flat: bool = False):
-    """One 1/16000 s step for all streams (free-run). cond_*: (B, 3N),
-    lpc: (B, 16). Returns (new_state, out (B,) rounded samples)."""
+                flat: bool = False,
+                target: Optional[torch.Tensor] = None,
+                teacher_mask: Optional[torch.Tensor] = None):
+    """One 1/16000 s step for all streams. cond_*: (B, 3N), lpc: (B, 16).
+    target (B,) with teacher_mask (B,) bool: where the mask is set the step
+    follows the target (lpcnet.c:256-261) and emits it; the sampler runs and
+    the RNG advances all the same. Returns (new_state, out (B,) rounded
+    samples)."""
     # 1. LPC prediction (lpcnet.c:252)
-    prod = state["last_sig"] * lpc
-    acc = prod[:, 0]
-    for k in range(1, LPC_ORDER):
-        acc = acc + prod[:, k]
-    pred = -acc
+    pred = _lpc_pred(state["last_sig"], lpc)
     # 2-4. GRU-A from three table rows + the frame condition
     lsu = lin2ulaw(state["last_sig"][:, 0]).long()
     pu = lin2ulaw(pred).long()
@@ -175,10 +193,17 @@ def sample_step(tables: Dict[str, Any], state: Dict[str, torch.Tensor],
     logits = y1 + y2
     exc, rng = (_sample_flat if flat else _sample_tree)(logits, state["rng"])
     # 7. excitation -> signal, de-emphasis, clip, round (lpcnet.c:260-269)
-    pcm = pred + ulaw2lin(exc)
+    if target is not None:
+        tf_sig = target - preemph * state["deemph"]
+        exc = torch.where(teacher_mask, lin2ulaw(tf_sig - pred), exc)
+        pcm = torch.where(teacher_mask, tf_sig, pred + ulaw2lin(exc))
+    else:
+        pcm = pred + ulaw2lin(exc)
     last_sig = torch.cat([pcm[:, None], state["last_sig"][:, :-1]], dim=-1)
     deemph = pcm + preemph * state["deemph"]
     out = torch.floor(0.5 + torch.clamp(deemph, -32767.0, 32767.0))
+    if target is not None:
+        out = torch.where(teacher_mask, target, out)
     return {"gru_a": gru_a, "gru_b": gru_b, "last_sig": last_sig,
             "last_exc": exc, "deemph": deemph, "rng": rng}, out
 
@@ -194,6 +219,129 @@ def synthesize_frame(tables: Dict[str, Any], state: Dict[str, torch.Tensor],
                                  cfg.approx, cfg.preemph, flat=flat)
         outs.append(out)
     return state, torch.stack(outs, dim=1)
+
+
+def synth_samples(tables: Dict[str, Any], state: Dict[str, torch.Tensor],
+                  cond: Dict[str, torch.Tensor], cfg, nsamples: int,
+                  target: Optional[torch.Tensor] = None,
+                  preload: Optional[torch.Tensor] = None,
+                  n_active: Optional[torch.Tensor] = None,
+                  force_from: Optional[torch.Tensor] = None,
+                  flat: bool = False
+                  ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """`nsamples` steps under ONE condition set, as the PLC engines call it
+    for whole frames and half frames (lpcnet_synthesize_tail_impl,
+    lpcnet.c:235-271).
+
+    cond: cond_a (B,3Na), cond_b (B,3Nb), lpc (B,16). target: optional
+    (B, nsamples); preload (B,) int32: samples [0, preload) follow the
+    target; force_from (B,) int32: samples [force_from, nsamples) follow it
+    too. With a target and neither, the whole segment is forced; with
+    force_from alone, preload is 0. n_active (B,) int32: on steps >=
+    n_active a stream keeps its whole state, RNG included, and emits 0.
+    Returns (state, (B, nsamples))."""
+    ca, cb, lp = cond["cond_a"], cond["cond_b"], cond["lpc"]
+    if target is not None and preload is None:
+        preload = torch.full(ca.shape[:1], 0 if force_from is not None
+                             else nsamples, dtype=torch.int32,
+                             device=ca.device)
+    outs = []
+    for i in range(nsamples):
+        if target is not None:
+            tmask = i < preload
+            if force_from is not None:
+                tmask = tmask | (i >= force_from)
+            new, out = sample_step(tables, state, ca, cb, lp, cfg.approx,
+                                   cfg.preemph, flat=flat,
+                                   target=target[:, i], teacher_mask=tmask)
+        else:
+            new, out = sample_step(tables, state, ca, cb, lp, cfg.approx,
+                                   cfg.preemph, flat=flat)
+        if n_active is not None:
+            act = i < n_active
+            new = {k: torch.where(act.reshape((-1,) + (1,) * (v.dim() - 1)),
+                                  v, state[k]) for k, v in new.items()}
+            out = torch.where(act, out, torch.zeros_like(out))
+        state = new
+        outs.append(out)
+    return state, torch.stack(outs, dim=1)
+
+
+def teacher_sequences(state: Dict[str, torch.Tensor],
+                      cond: Dict[str, torch.Tensor], cfg,
+                      target: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Everything but the GRU recurrences of a fully forced segment: under
+    teacher forcing the signal and excitation chain is a function of the
+    target alone. Returns lsu, pu, exc_prev ((B, ns) int32 row indices of
+    the three GRU-A tables) and last_sig, last_exc, deemph, the non-GRU
+    state after the segment. Every value equals the forced sample loop's
+    bit for bit: the de-emphasis chain repeats sample_step's operations
+    one sample at a time, and the prediction adds its 16 products in
+    sample_step's order."""
+    preemph = cfg.preemph
+    ns = target.shape[1]
+    d = state["deemph"]
+    tf = []
+    for i in range(ns):
+        pd = preemph * d
+        tf.append(target[:, i] - pd)
+        d = tf[-1] + pd
+    tf = torch.stack(tf, dim=1)                          # (B, ns) forced pcm
+    sig_seq = torch.cat([state["last_sig"].flip(-1), tf], dim=1)
+    # lags[:, i, j] = the signal j+1 samples before sample i
+    lags = torch.stack(
+        [sig_seq[:, LPC_ORDER - 1 - j:LPC_ORDER - 1 - j + ns]
+         for j in range(LPC_ORDER)], dim=-1)             # (B, ns, 16)
+    pred = _lpc_pred(lags, cond["lpc"][:, None, :])
+    exc = lin2ulaw(tf - pred)
+    return {"lsu": lin2ulaw(lags[..., 0]), "pu": lin2ulaw(pred),
+            "exc_prev": torch.cat([state["last_exc"][:, None], exc[:, :-1]],
+                                  dim=1),
+            "last_sig": sig_seq[:, -LPC_ORDER:].flip(-1).contiguous(),
+            "last_exc": exc[:, -1].contiguous(), "deemph": d}
+
+
+def teacher_gru_advance(tables: Dict[str, Any], gru_a: torch.Tensor,
+                        gru_b: torch.Tensor, cond: Dict[str, torch.Tensor],
+                        seqs: Dict[str, torch.Tensor], cfg
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two GRU recurrences over a forced segment from its table
+    indices seqs["lsu"], ["pu"], ["exc_prev"] ((B, ns) each), summing in the
+    sample loop's order. Returns the new (gru_a, gru_b)."""
+    lsu, pu, exc_prev = (seqs[k].long() for k in ("lsu", "pu", "exc_prev"))
+    for i in range(lsu.shape[1]):
+        zrh_a = (cond["cond_a"] + tables["tbl_sig"][lsu[:, i]]
+                 + tables["tbl_pred"][pu[:, i]]
+                 + tables["tbl_exc"][exc_prev[:, i]])
+        gru_a = layers.gru_gates(
+            gru_a, zrh_a, seq_dot(gru_a, tables["wr_a"]) + tables["br_a"],
+            approx=cfg.approx)
+        zrh_b = cond["cond_b"] + sliced_dot(gru_a, tables["wi_b"])
+        gru_b = layers.gru_gates(
+            gru_b, zrh_b, seq_dot(gru_b, tables["wr_b"]) + tables["br_b"],
+            approx=cfg.approx)
+    return gru_a, gru_b
+
+
+def teacher_advance(tables: Dict[str, Any], state: Dict[str, torch.Tensor],
+                    cond: Dict[str, torch.Tensor], cfg, target: torch.Tensor,
+                    gru_advance=teacher_gru_advance
+                    ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """State advance over a FULLY teacher-forced segment without the
+    sample loop: what synth_samples(..., target=target) leaves as state,
+    bit for bit, with only the two GRU recurrences run per sample (no
+    dual-FC, no sampler; the forced output is the target itself).
+
+    cond: cond_a (B,3Na), cond_b (B,3Nb), lpc (B,16); target (B, ns).
+    gru_advance: what runs the recurrences (the CUDA wrapper passes its
+    kernel launch). Returns (new_state, target)."""
+    seqs = teacher_sequences(state, cond, cfg, target)
+    gru_a, gru_b = gru_advance(tables, state["gru_a"], state["gru_b"], cond,
+                               seqs, cfg)
+    return {"gru_a": gru_a, "gru_b": gru_b, "last_sig": seqs["last_sig"],
+            "last_exc": seqs["last_exc"], "deemph": seqs["deemph"],
+            "rng": kiss99.kiss99_advance(state["rng"],
+                                        2 * target.shape[1])}, target
 
 
 def synthesize_frames(tables: Dict[str, Any], state: Dict[str, torch.Tensor],

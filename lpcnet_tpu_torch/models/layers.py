@@ -32,6 +32,28 @@ def gru_gates(h, zrh_in, recur, act="tanh", approx=False):
     return z * h + (1.0 - z) * hcand
 
 
+def gru_apply(p, h, x, act="tanh", approx=False):
+    """Reset-after GRU step from the input x (..., nin): the input product
+    and bias, then gru_gates (nnet.c compute_gru2:281-322). Returns the new
+    state."""
+    return gru_gates(h, x @ p["wi"] + p["bi"], h @ p["wr"] + p["br"], act,
+                     approx)
+
+
+def conv1d_step(p, mem, x, act="tanh", approx=False):
+    """Streaming conv step with a delay line (nnet.c compute_conv1d:
+    452-470). mem: (B, k-1, nin) past inputs; x: (B, nin) the current one.
+    Returns (y, new_mem); y belongs to the window that ends at x, the 'same'
+    output delayed by (k-1)//2 frames."""
+    w = p["w"]
+    window = torch.cat([mem, x[:, None, :]], dim=1)        # (B, k, nin)
+    y = window[:, 0] @ w[0]
+    for j in range(1, w.shape[0]):
+        y = y + window[:, j] @ w[j]
+    new_mem = window[:, 1:] if w.shape[0] > 1 else mem
+    return activations.get(act, approx)(y + p["b"]), new_mem
+
+
 def conv1d_same_apply(p, x, act="tanh", approx=False):
     """'same'-padded 1D conv over time (training_tf2/lpcnet.py:335-340).
     x: (B, T, nin) -> (B, T, nout); p["w"] is (k, nin, nout).

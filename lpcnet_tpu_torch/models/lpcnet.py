@@ -110,6 +110,60 @@ def frame_conditions(params, features, cfg: LPCNetConfig,
     return {"cond_a": cond_a, "cond_b": cond_b, "lpc": lpc, "cfeat": cfeat}
 
 
+def frame_net_init_state(batch: int, cfg: LPCNetConfig, device=None):
+    """Streaming frame-network state: the conv delay lines and the LPC
+    delay line (NNetState + old_lpc, lpcnet_private.h:33-47). With
+    cfg.lookahead == 0, old_lpc is an empty (B, 0, 16) tensor."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "conv1_mem": torch.zeros((batch, 2, cfg.frame_in_size), **f32),
+        "conv2_mem": torch.zeros((batch, 2, cfg.cond_size), **f32),
+        "old_lpc": torch.zeros((batch, cfg.lookahead, cfg.lpc_order), **f32),
+        "frame_count": torch.zeros((batch,), dtype=torch.int32,
+                                   device=device),
+    }
+
+
+def frame_net_step(params, tables, fstate, features, cfg: LPCNetConfig):
+    """One streaming frame-conditioning step (run_frame_network,
+    lpcnet.c:82-120): causal convs with warm-up zeroing and the
+    FEATURES_DELAY LPC delay line. features: (B, >=20). Returns
+    (new_fstate, dict with cond_a, cond_b, lpc aligned to the conv-delayed
+    conditions, and cfeat)."""
+    ap = cfg.approx
+    pe = layers.embedding_apply(params["embed_pitch"], pitch_index(features))
+    x = torch.cat([features[..., :cfg.nb_features], pe], dim=-1)
+    c1, c1_mem = layers.conv1d_step(params["conv1"], fstate["conv1_mem"], x,
+                                    "tanh", ap)
+    fc = fstate["frame_count"]
+    c1 = torch.where((fc < 1)[:, None], 0.0, c1)             # lpcnet.c:99
+    c2, c2_mem = layers.conv1d_step(params["conv2"], fstate["conv2_mem"], c1,
+                                    "tanh", ap)
+    c2 = torch.where((fc < cfg.lookahead)[:, None], 0.0, c2)  # lpcnet.c:101
+    h = layers.dense_apply(params["dense1"], c2, "tanh", ap)
+    cfeat = layers.dense_apply(params["dense2"], h, "tanh", ap)
+    cond_a = cfeat @ tables["cond_a_w"] + tables["bi_a"]
+    cond_b = cfeat @ tables["cond_b_w"] + tables["bi_b"]
+    old_lpc = fstate["old_lpc"]
+    if cfg.e2e:
+        lpc = rc2lpc(cfeat[..., :cfg.lpc_order])
+    elif cfg.lookahead == 0:
+        # no-lookahead models use the current frame's LPC directly
+        lpc, _ = dsp.lpc_from_cepstrum(features[..., :NB_BANDS])
+    else:
+        # LPC delayed by FEATURES_DELAY frames (lpcnet.c:109-115)
+        new_lpc, _ = dsp.lpc_from_cepstrum(features[..., :NB_BANDS])
+        lpc = old_lpc[:, -1]
+        old_lpc = torch.cat([new_lpc[:, None], old_lpc[:, :-1]], dim=1)
+    if cfg.lpc_gamma != 1.0:
+        lpc = dsp.lpc_weighting(lpc, cfg.lpc_gamma)
+    new_fstate = {"conv1_mem": c1_mem, "conv2_mem": c2_mem,
+                  "old_lpc": old_lpc,
+                  "frame_count": torch.clamp(fc + 1, max=1000)}
+    return new_fstate, {"cond_a": cond_a, "cond_b": cond_b, "lpc": lpc,
+                        "cfeat": cfeat}
+
+
 def rc2lpc(rc: torch.Tensor) -> torch.Tensor:
     """Reflection coefficients -> LPC by the step-up recursion
     (lpcnet.c:56-79). rc: (..., order)."""

@@ -34,4 +34,6 @@ def get(name: str, approx: bool):
         return tanh_approx if approx else torch.tanh
     if name == "sigmoid":
         return sigmoid_approx if approx else torch.sigmoid
+    if name == "linear":
+        return lambda x: x
     raise ValueError(f"unknown activation {name!r}")

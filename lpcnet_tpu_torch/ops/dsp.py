@@ -1,6 +1,7 @@
-"""The spectral DSP that frame conditioning needs: inverse DCT, band gain
-interpolation, inverse FFT and Levinson-Durbin LPC (the port of the
-matching parts of lpcnet_tpu/ops/dsp.py, reference src/freq.c).
+"""Spectral DSP: windowing, FFT, band energies, DCT cepstrum, band gain
+interpolation and Levinson-Durbin LPC (the port of lpcnet_tpu/ops/dsp.py,
+reference src/freq.c). The FFTs are torch.fft's; band folding and the DCT
+are small matrix products.
 
 All functions are batched over arbitrary leading dims.
 """
@@ -8,7 +9,8 @@ import numpy as np
 import torch
 
 from ..constants import FREQ_SIZE, LPC_ORDER, NB_BANDS, WINDOW_SIZE
-from .tables import BAND_INTERP, COMPENSATION, DCT_TABLE
+from .tables import (BAND_EDGE_SCALE, BAND_INTERP, COMPENSATION, DCT_TABLE,
+                     HALF_WINDOW)
 
 _DCT_SCALE = float(np.float32(np.sqrt(2.0 / NB_BANDS)))
 _NBINS = BAND_INTERP.shape[0]  # 160 interpolated FFT bins
@@ -18,6 +20,49 @@ _LAG = (1.0 - 6e-5 * np.arange(1, LPC_ORDER + 1, dtype=np.float32) ** 2)
 
 def _t(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(a, device=like.device)
+
+
+def apply_window(x: torch.Tensor) -> torch.Tensor:
+    """Vorbis window on both edges (freq.c:322-328). x: (..., WINDOW_SIZE)."""
+    w = np.concatenate([HALF_WINDOW, HALF_WINDOW[::-1]])
+    return x * _t(w, x)
+
+
+def forward_transform(x: torch.Tensor) -> torch.Tensor:
+    """FFT wrapper (freq.c:242-254): rfft scaled by 1/WINDOW_SIZE.
+    x: (..., WINDOW_SIZE) -> complex64 (..., FREQ_SIZE)."""
+    return torch.fft.rfft(x.to(torch.float32), n=WINDOW_SIZE,
+                          dim=-1) / WINDOW_SIZE
+
+
+def _power(X: torch.Tensor) -> torch.Tensor:
+    return (X.real * X.real + X.imag * X.imag)[..., :_NBINS]
+
+
+def compute_band_energy(X: torch.Tensor) -> torch.Tensor:
+    """18 triangular band energies (freq.c:131-154). X: (..., FREQ_SIZE)
+    complex."""
+    return (_power(X) @ _t(BAND_INTERP, X)) * _t(BAND_EDGE_SCALE, X)
+
+
+def compute_band_energy_inverse(X: torch.Tensor) -> torch.Tensor:
+    """Band energies of 1/(|X|^2 + 1e-9) (freq.c:60-84), used by Burg."""
+    inv = 1.0 / (_power(X) + 1e-9)
+    return (inv @ _t(BAND_INTERP, X)) * _t(BAND_EDGE_SCALE, X)
+
+
+def dct(x: torch.Tensor) -> torch.Tensor:
+    """DCT-II, 18-point (freq.c:218-228). x: (..., 18)."""
+    return (x.to(torch.float32) @ _t(DCT_TABLE, x)) * _DCT_SCALE
+
+
+def preemphasis(x: torch.Tensor, mem: torch.Tensor, coef: float = 0.85):
+    """y[i] = x[i] - coef*x[i-1], streaming (lpcnet_enc.c:872-880).
+    x: (..., N), mem: (...,) the previous input sample. Returns (y,
+    new_mem)."""
+    x = x.to(torch.float32)
+    prev = torch.cat([mem[..., None], x[..., :-1]], dim=-1)
+    return x - coef * prev, x[..., -1]
 
 
 def idct(x: torch.Tensor) -> torch.Tensor:

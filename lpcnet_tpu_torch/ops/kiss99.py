@@ -5,7 +5,13 @@ Seeding is host-side numpy. The batched step works on tensors: a state is a
 (..., 4) int64 tensor [z, w, jsr, jcong] holding the uint32 values of the
 JAX package's (..., 4) uint32 state. PyTorch has little uint32 arithmetic,
 so each step computes in int64 and masks every result to 32 bits.
+
+kiss99_advance jumps a state ahead by n draws in a few dozen tensor
+operations instead of n steps: KISS99 is three independent generators, and
+each has a closed form for n steps (see the function).
 """
+import functools
+
 import numpy as np
 import torch
 
@@ -100,3 +106,78 @@ def kiss99_next(state: torch.Tensor):
     cong = (69069 * jcong + 1234567) & _M32
     out = ((mwc ^ cong) + shr3) & _M32
     return torch.stack([znew, wnew, shr3, cong], dim=-1), out
+
+
+_MWC_A = (36969, 18000)                     # multipliers of z and w
+_MWC_M = tuple(a * 65536 - 1 for a in _MWC_A)
+
+
+@functools.lru_cache(maxsize=None)
+def _xorshift_columns(n: int):
+    """The images of the 32 unit vectors under n xorshift steps."""
+    cols = []
+    for bit in range(32):
+        x = 1 << bit
+        for _ in range(n):
+            x ^= (x << 13) & _M32
+            x ^= x >> 17
+            x ^= (x << 5) & _M32
+        cols.append(x)
+    return tuple(cols)
+
+
+@functools.lru_cache(maxsize=None)
+def _cong_affine(n: int):
+    """(A, C) with cong after n steps = A*cong + C mod 2^32."""
+    A, C = 1, 0
+    for _ in range(n):
+        A, C = (A * 69069) & _M32, (C * 69069 + 1234567) & _M32
+    return A, C
+
+
+def _mulmod(a: torch.Tensor, x: torch.Tensor, m: torch.Tensor):
+    """a*x mod m for int64 tensors with a, x < 2^32 and m < 2^32, without
+    leaving 63 bits: x goes in as two 16-bit halves."""
+    hi = (a * (x >> 16)) % m
+    return (hi * 65536 + a * (x & 0xFFFF)) % m
+
+
+def kiss99_advance(state: torch.Tensor, n: int) -> torch.Tensor:
+    """The state after n draws, equal to n kiss99_next steps bit for bit.
+
+    state: (..., 4) int64 holding uint32 values [z, w, jsr, jcong].
+      * z, w (x' = a*(x & 0xFFFF) + (x >> 16), a multiply-with-carry in
+        base 2^16): x' = a*x mod m with m = a*2^16 - 1. Two explicit steps
+        bring any 32-bit x into [0, m]; from there the n-2 further steps
+        are one modular product by a^(n-2). Both 0 and m are fixed points,
+        congruent mod m, so x == m is kept apart.
+      * jsr (xorshift) is linear over GF(2): the XOR of the n-step images
+        of its set bits.
+      * jcong (x' = 69069 x + 1234567 mod 2^32) is affine: A*x + C."""
+    if n < 3:
+        for _ in range(n):
+            state, _ = kiss99_next(state)
+        return state
+    dev = state.device
+
+    def i64(values):
+        return torch.tensor(values, dtype=torch.int64, device=dev)
+
+    zw = state[..., :2]
+    for _ in range(2):
+        zw = i64(_MWC_A) * (zw & 0xFFFF) + (zw >> 16)
+    m = i64(_MWC_M)
+    power = i64([pow(a, n - 2, mod) for a, mod in zip(_MWC_A, _MWC_M)])
+    zw = torch.where(zw == m, m, _mulmod(power, zw, m))
+
+    jsr, jcong = state[..., 2], state[..., 3]
+    bits = (jsr[..., None] >> torch.arange(32, device=dev)) & 1
+    terms = bits * i64(_xorshift_columns(n))
+    width = 32
+    while width > 1:                       # XOR-reduce the 32 terms
+        width //= 2
+        terms = terms[..., :width] ^ terms[..., width:]
+    A, C = _cong_affine(n)
+    cong = (A * (jcong & 0xFFFF) + (((A * (jcong >> 16)) & 0xFFFF) << 16)
+            + C) & _M32
+    return torch.cat([zw, terms, cong[..., None]], dim=-1)

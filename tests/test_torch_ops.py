@@ -108,6 +108,26 @@ def test_kiss99_batched_matches_jax_exact():
     np.testing.assert_array_equal(st_t, np.asarray(st).astype(np.int64))
 
 
+def test_kiss99_advance_equals_stepping():
+    """The closed-form jump against n single steps, exact, on random
+    states and on the edge states of each generator: all zeros, all ones,
+    the multiply-with-carry moduli and their neighbours, the seeds that
+    kiss99_srand avoids."""
+    rs = np.random.RandomState(0)
+    st = rs.randint(0, 2 ** 32, (64, 4), dtype=np.uint64).astype(np.int64)
+    st[0] = 0
+    st[1] = 2 ** 32 - 1
+    st[2] = [36969 * 65536 - 1, 18000 * 65536 - 1, 1, 1]
+    st[3] = [36969 * 65536, 18000 * 65536, 5, 7]
+    st[4] = [0x9068FFFF, 0x464FFFFF, 3, 4]
+    state = torch.as_tensor(st)
+    stepped = state
+    for n in range(330):
+        if n in (0, 1, 2, 3, 4, 17, 160, 320, 329):
+            assert torch.equal(t_kiss.kiss99_advance(state, n), stepped), n
+        stepped, _ = t_kiss.kiss99_next(stepped)
+
+
 # ------------------------------------------------------------- activations
 
 @pytest.mark.parametrize("name", ["tanh", "sigmoid"])

@@ -1,8 +1,8 @@
 """The port's plain sample loop (lpcnet_tpu_torch/kernels/sample_scan.py)
-and the CPU side of the frame-kernel wrapper (kernels/sample_cuda.py)
-against the JAX package's lax.scan loop and its Pallas kernel in interpret
-mode, with the setup of tests/test_pallas_kernel.py (random-init weights at
-full width, B=4, T=2, per-stream RNG).
+and the CPU side of the kernel wrappers (kernels/sample_cuda.py) against
+the JAX package's lax.scan loop and its Pallas kernels in interpret mode,
+with the setup of tests/test_pallas_kernel.py (random-init weights at full
+width, B=4, T=2, per-stream RNG).
 
 Gate of lpcnet_tpu/verify.py for free-run synthesis: rng state exact, pcm
 exact fraction >= 0.95, correlation >= 0.999. The loops sum in different
@@ -144,3 +144,154 @@ def test_seq_dot_is_a_matmul():
                                atol=1e-4)
     torch.testing.assert_close(t_scan.sliced_dot(x, w), ref, rtol=1e-5,
                                atol=1e-4)
+
+
+# ---- synth_samples (K3's function) and teacher_advance (K4's), full width
+
+# the argument sets the JAX package's engines pass: (nsamples, target,
+# preload, force_from, n_active)
+FLAG_SETS = {
+    "free80": (80, False, False, False, False),
+    "target": (80, True, False, False, False),
+    "target_preload": (80, True, True, False, False),
+    "target_force_from": (160, True, False, True, False),
+    "target_force_from_n_active": (80, True, False, True, True),
+    "n_active": (80, False, False, False, True),
+}
+
+
+def _flag_args(name, batch):
+    ns, has_target, has_pre, has_ff, has_act = FLAG_SETS[name]
+    rs = np.random.RandomState(3)
+    kw = {}
+    if has_target:
+        kw["target"] = np.round(rs.randn(batch, ns) * 2500).astype(np.float32)
+    if has_pre:
+        kw["preload"] = rs.randint(0, ns + 1, batch).astype(np.int32)
+    if has_ff:
+        kw["force_from"] = rs.randint(ns // 4, ns + 1, batch).astype(np.int32)
+    if has_act:
+        kw["n_active"] = rs.randint(0, ns + 1, batch).astype(np.int32)
+    return ns, kw
+
+
+@pytest.fixture(scope="module")
+def warm(setup):
+    """A state warmed by 23 free-run steps, so that no leaf is trivial, and
+    the second frame's conditions."""
+    voc, conds, state, tables, tconds, _ = setup
+    cond0 = {k: conds[k][:, 0] for k in ("cond_a", "cond_b", "lpc")}
+    st, _ = j_scan.synth_samples(voc.tables, state, cond0, CFG_J, 23)
+    cond = {k: conds[k][:, 1] for k in ("cond_a", "cond_b", "lpc")}
+    tcond = {k: tconds[k][:, 1] for k in ("cond_a", "cond_b", "lpc")}
+    return voc, tables, st, cond, tcond
+
+
+def _rows(tree, batch):
+    return {k: v[:batch] for k, v in tree.items()}
+
+
+def _assert_state(st_t, st_j):
+    """rng, last_exc exact; GRU states to 1e-5 (384 products summed in
+    another order); last_sig and deemph to 1e-6 of the int16 range: they
+    are the unrounded signal, whose last bits differ where XLA's CPU code
+    contracts a multiply and an add, and the de-emphasis recurrence
+    (gain 1/0.15) carries such ulps along; the rounded pcm is exact."""
+    np.testing.assert_array_equal(st_t["rng"].numpy(),
+                                  np.asarray(st_j["rng"]).astype(np.int64))
+    np.testing.assert_array_equal(st_t["last_exc"].numpy(),
+                                  np.asarray(st_j["last_exc"]))
+    for k in ("gru_a", "gru_b"):
+        np.testing.assert_allclose(st_t[k].numpy(), np.asarray(st_j[k]),
+                                   atol=1e-5, err_msg=k)
+    for k in ("last_sig", "deemph"):
+        np.testing.assert_allclose(st_t[k].numpy(), np.asarray(st_j[k]),
+                                   rtol=0, atol=0.03, err_msg=k)
+
+
+@pytest.mark.parametrize("batch", [2, 4])
+@pytest.mark.parametrize("flags", list(FLAG_SETS))
+def test_synth_samples_matches_jax(warm, flags, batch):
+    """Every argument set through the port's plain loop (walked and flat
+    sampler), JAX scan and the JAX Pallas kernel in interpret mode: the
+    excitation and the rng exact, pcm equal but for rounding flips of
+    floor(.5 + x) by 1 on at most 1% of the samples (measured: 1 sample of
+    320 in the free-run part of the two force_from sets, none elsewhere;
+    the loops sum in different orders)."""
+    voc, tables, st, cond, tcond = warm
+    ns, kw = _flag_args(flags, batch)
+    st, cond, tcond = _rows(st, batch), _rows(cond, batch), _rows(tcond,
+                                                                  batch)
+    jkw = {k: jnp.asarray(v) for k, v in kw.items()}
+    tkw = {k: torch.as_tensor(v) for k, v in kw.items()}
+    st_j, pcm_j = j_scan.synth_samples(voc.tables, st, cond, CFG_J, ns,
+                                       **jkw)
+    st_p, pcm_p = sample_pallas.synth_samples_pallas(
+        voc.tables, st, cond, CFG_J, ns, interpret=True, variant="flat",
+        **jkw)
+    before = dict(sample_cuda.launches)
+    st_t, pcm_t = sample_cuda.synth_samples(
+        tables, _to_torch_state(st), tcond, CFG_T, ns, variant="flat", **tkw)
+    assert sample_cuda.launches == before
+    assert pcm_t.shape == (batch, ns)
+    for name, ref, st_ref in (("scan", pcm_j, st_j), ("pallas", pcm_p, st_p)):
+        d = np.abs(pcm_t.numpy() - np.asarray(ref))
+        print(f"{flags} B={batch} vs {name}: pcm max |d| {d.max()}, exact "
+              f"{(d == 0).mean():.6f}; " + ", ".join(
+                  f"{k} max |d| "
+                  f"{np.abs(st_t[k].numpy() - np.asarray(st_ref[k])).max():.3g}"
+                  for k in ("gru_a", "gru_b", "last_sig", "deemph")))
+        assert d.max() <= 1 and (d == 0).mean() >= 0.99, (d.max(),
+                                                          (d == 0).mean())
+    _assert_state(st_t, st_j)
+    _assert_state(st_t, st_p)
+    if "n_active" in kw:
+        for b in range(batch):
+            assert not pcm_t[b, int(kw["n_active"][b]):].any()
+
+
+def test_synth_samples_walked_sampler_same_bits(warm):
+    voc, tables, st, cond, tcond = warm
+    ns, kw = _flag_args("target_force_from_n_active", 4)
+    tkw = {k: torch.as_tensor(v) for k, v in kw.items()}
+    flat = t_scan.synth_samples(tables, _to_torch_state(st), tcond, CFG_T,
+                                ns, flat=True, **tkw)
+    walk = t_scan.synth_samples(tables, _to_torch_state(st), tcond, CFG_T,
+                                ns, flat=False, **tkw)
+    assert torch.equal(flat[1], walk[1])
+    for k in flat[0]:
+        assert torch.equal(flat[0][k], walk[0][k]), k
+
+
+@pytest.mark.parametrize("batch", [2, 4])
+def test_teacher_advance_matches_jax(warm, batch):
+    """teacher_advance against the JAX package's (scan and the Pallas
+    kernel in interpret mode), and within the port against the fully forced
+    sample loop: every state leaf exact."""
+    voc, tables, st, cond, tcond = warm
+    ns, kw = _flag_args("target_force_from", batch)
+    st, cond, tcond = _rows(st, batch), _rows(cond, batch), _rows(tcond,
+                                                                  batch)
+    tgt = torch.as_tensor(kw["target"])
+    st_j, _ = j_scan.teacher_advance(voc.tables, st, cond, CFG_J,
+                                     jnp.asarray(kw["target"]))
+    st_p, _ = sample_pallas.teacher_advance_pallas(
+        voc.tables, st, cond, CFG_J, jnp.asarray(kw["target"]),
+        interpret=True)
+    before = dict(sample_cuda.launches)
+    st_t, out = sample_cuda.teacher_advance(tables, _to_torch_state(st),
+                                            tcond, CFG_T, tgt)
+    assert sample_cuda.launches == before
+    assert out is tgt
+    _assert_state(st_t, st_j)
+    _assert_state(st_t, st_p)
+    st_f, pcm_f = t_scan.synth_samples(tables, _to_torch_state(st), tcond,
+                                       CFG_T, ns, target=tgt)
+    assert torch.equal(pcm_f, tgt)
+    for k in st_f:
+        assert torch.equal(st_t[k], st_f[k]), k
+
+
+def test_sliced_dot_names_the_width_it_needs():
+    with pytest.raises(ValueError, match="multiple"):
+        t_scan.sliced_dot(torch.zeros((1, 64)), torch.zeros((64, 48)))
