@@ -8,17 +8,21 @@ Phases, each fatal on failure:
                build/lpcnet_tpu_torch/, one process per source, together.
   2. synthesis - the user's entry point, Synthesizer(...).synthesize, on the
                golden reference features tiled over the streams, per-stream
-               RNG, shipped weights: B=1024 x 50 frames with the default
-               flat sampler, B=1024 x 4 frames with the walked one (base),
-               then B=1 x 50 (flat) and B=1 x 4 (base). The launch counts
-               are set to 0 just before each run and read just after it.
-               Each run is then held against the plain PyTorch sample loop
-               (kernels/sample_scan.py) on the card, on the run's own state
-               and the first 2 frames of its own conditions, with the gates
-               of lpcnet_tpu/verify.py: rng exact, pcm exact fraction >=
-               0.95, correlation >= 0.999; the run's pcm must be the
-               kernel's on those inputs, and flat and base the same bits
-               (pcm, exc, rng). Kernel times by CUDA events.
+               RNG, shipped weights, with each of the four frame variants:
+               B=1024 x 50 frames with the default flat sampler and with the
+               fused kernel with thresholds drawn ahead (opt), x 4 with the
+               walked sampler (base) and the fused kernel (fuse); then
+               the same at B=1. The launch counts are set to 0 just before
+               each run and read just after it. Each run is then held
+               against its plain PyTorch version (kernels/sample_scan.py)
+               on the card, on the run's own state and the first 2 frames
+               of its own conditions, with the gates of
+               lpcnet_tpu/verify.py: rng exact, pcm exact fraction >= 0.95,
+               correlation >= 0.999; the run's pcm must be the kernel's on
+               those inputs, flat and base the same bits (pcm, exc, rng),
+               and fuse and opt the bits of the base kernel on the same
+               inputs (pcm, exc, rng and the GRU states). Kernel times by
+               CUDA events.
   3. plc     - PLCEngine(...).run with the shipped vocoder and PLC weights
                on the golden speech tiled over the streams, per-stream loss
                flags (20%, runs of 1-3 frames): B=1024 x 50 frames and B=1
@@ -27,18 +31,37 @@ Phases, each fatal on failure:
                output finite, int16 range, good rows equal to their input.
   4. noncausal - NonCausalPLCEngine(...).run, B=1024 x 10 frames: 4
                synth_samples and 3 teacher_advance launches per step.
+  4b. modes  - Synthesizer.synthesize_streaming, B=1024 x 10 frames (one
+               free-run synth_samples launch per frame; the first
+               `lookahead` frames are silence and leave the sample state
+               and the RNG a fresh reset's), and synthesize_teacher, B=1024
+               x 4 frames with per-stream preload counts (one launch per
+               frame; forced samples equal the target).
+  4c. strict - StrictCausalPLCEngine(...).run on the same speech and loss
+               flags, B=1024 x 10 frames and B=1 x 10 (the single stream
+               is made to lose frames 3 and 4): exactly 8
+               synth_samples launches per step (each with per-stream active
+               counts) and no teacher_advance; output finite, int16 range,
+               good rows equal to their input, blend rows in their second
+               half.
   5. holds   - for every distinct (kernel, argument set, nsamples, batch)
-               that phases 3 and 4 launched, the arguments of its last
+               that phases 3 to 4c launched, the arguments of its last
                launch in the run go through the kernel and through its
                plain version on the card: the gates of phase 2 for
-               synth_samples, GRU states to 5e-3 for teacher_advance. The
-               argument set with n_active, which no engine of the port
-               passes yet, is held on made-up counts; teacher_advance is
-               held against a fully forced synth_samples launch.
+               synth_samples, GRU states to 5e-3 for teacher_advance;
+               teacher_advance is held against a fully forced synth_samples
+               launch.
   6. times   - CUDA-event time per launch of synth_samples (the PLCEngine
                argument set, 160 samples) and of the teacher_advance kernel
                at B=1024 and B=1, the host-side parts of teacher_advance,
-               and the PLCEngine step's parts one by one (host clock).
+               the PLCEngine step's parts one by one and the strict step's
+               split (its 10 frame_net_step calls, its 8 launches, the
+               rest; host clock).
+  7. verify  - lpcnet_tpu_torch.verify.verify_on_device(): every kernel
+               against its oracle at B=1024 with the JAX package's gate
+               names and thresholds, the fused variants against base, and
+               a 3-frame strict run through the kernels against the same
+               engine through the plain loops.
 It prints one JSON line of per-kernel numbers, the card's name and power
 limit, and last {"ok": true, "device": {...}}. Without a CUDA device, or
 without the lpcnet_tpu_torch package beside it, it exits non-zero before
@@ -61,17 +84,29 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 GATE_EXACT, GATE_CORR, GATE_GRU = 0.95, 0.999, 5e-3
 TOLERANCE = "rng exact, pcm exact fraction >= 0.95, corr >= 0.999"
-# (variant, streams, frames) of each synthesis run: the default flat sampler
-# and the walked one, at the server width and for one stream
-PATHS = (("flat", 1024, 50), ("base", 1024, 4), ("flat", 1, 50),
-         ("base", 1, 4))
+# (variant, streams, frames) of each synthesis run: the four frame variants
+# at the server width and for one stream (flat before the others: they are
+# compared with it)
+PATHS = (("flat", 1024, 50), ("base", 1024, 4), ("opt", 1024, 50),
+         ("fuse", 1024, 4), ("flat", 1, 50), ("base", 1, 4), ("opt", 1, 50),
+         ("fuse", 1, 4))
 # (variant, streams, frames) of each PLCEngine run
 PLC_PATHS = (("flat", 1024, 50), ("flat", 1, 50), ("base", 1024, 10))
 NONCAUSAL_PATH = (1024, 10)
+STRICT_PATHS = ((1024, 10), (1, 10))        # (streams, frames)
+STREAMING_PATH = (1024, 10)
+TEACHER_PATH = (1024, 4)
+VERIFY_STRICT_FRAMES = 3
+# the argument sets of the strict engine's 8 launches per step:
+# (given, nsamples, launches)
+STRICT_LAUNCHES = ((("target", "preload", "n_active"), 160, 4),
+                   (("n_active",), 80, 3),
+                   (("target", "preload", "n_active"), 80, 1))
 GATE_FRAMES = 2     # frames of each synthesis run held against the plain one
 TIME_FRAMES = 10    # frames per timed kernel call
 NA, NB, NL, FS = 384, 16, 256, 160
-SOURCES = ("sample_frame", "synth_samples", "teacher_advance")
+SOURCES = ("sample_frame", "sample_frame_opt", "synth_samples",
+           "teacher_advance")
 # multiply-adds per stream and sample: GRU-A recurrent, wi_b, GRU-B
 # recurrent; and the dual-FC that only the sample loop has
 GRU_MACS = NA * 3 * NA + NA * 3 * NB + NB * 3 * NB
@@ -163,16 +198,21 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def host_ms(fn, reps: int) -> float:
-    """Host clock around reps calls, synchronised before and after."""
+def host_ms(fn, reps: int, wait: bool = True) -> float:
+    """Host clock around reps calls, synchronised before and after. With
+    wait=False the clock is read when the calls return, before the device
+    has finished: what the host spends issuing the work."""
     import torch
     fn()                                  # warm
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
         fn()
+    if wait:
+        torch.cuda.synchronize()
+    t = (time.perf_counter() - t0) * 1e3 / reps
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / reps
+    return t
 
 
 def compare_pcm(pcm_k, pcm_p) -> dict:
@@ -226,7 +266,7 @@ def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "lpcnet_tpu_torch")):
         return fail(f"no lpcnet_tpu_torch package beside {__file__}")
     sys.path.insert(0, REPO)
-    from lpcnet_tpu_torch import convert, features, plc
+    from lpcnet_tpu_torch import convert, features, plc, verify
     from lpcnet_tpu_torch.kernels import _build, sample_cuda, sample_scan
     from lpcnet_tpu_torch.models import lpcnet as lpcnet_model
     from lpcnet_tpu_torch.models import plc as plc_model
@@ -294,8 +334,12 @@ def main() -> int:
                                                     variant=variant)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        st_p, pcm_p = sample_scan.synthesize_frames(
-            tables, st0, c, cfg, flat=variant == "flat")
+        if variant in ("fuse", "opt"):
+            st_p, pcm_p = sample_scan.synthesize_frames_opt(
+                tables, st0, c, cfg, pipeline_thr=variant == "opt")
+        else:
+            st_p, pcm_p = sample_scan.synthesize_frames(
+                tables, st0, c, cfg, flat=variant == "flat")
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3 / GATE_FRAMES
         rng_ok = torch.equal(st_k["rng"], st_p["rng"])
@@ -317,9 +361,20 @@ def main() -> int:
             return fail(f"{tag}: the run's pcm differs from the kernel's on "
                         f"the same inputs")
 
-        # flat and base on the same inputs give the same bits
+        # flat and base on the same inputs give the same bits, and the
+        # fused variants the base kernel's, GRU states included
         if variant == "flat":
             flat_ref[B] = (tables, st0, c, st_k, pcm_k)
+        elif variant in ("fuse", "opt"):
+            sb, pb = sample_cuda.synthesize_frames(tables, st0, c, cfg,
+                                                   variant="base")
+            same = {k: torch.equal(st_k[k], sb[k])
+                    for k in ("last_exc", "rng", "gru_a", "gru_b")}
+            same["pcm"] = torch.equal(pcm_k, pb)
+            print(f"[kernel] {tag}: bit-identical to the base kernel on the "
+                  f"same inputs: {same}")
+            if not all(same.values()):
+                return fail(f"{tag}: {variant} and base kernels differ")
         else:
             tf, s0, cf, sf, pf = flat_ref[B]
             sb, pb = sample_cuda.synthesize_frames(tf, s0, cf, cfg,
@@ -407,8 +462,8 @@ def main() -> int:
           f" {counts}; out {o.shape}, finite {bool(np.isfinite(o).all())}, "
           f"max |out| {np.abs(o).max()}; {int(clean.sum())} streams without "
           f"a loss equal their input delayed by 80 samples: {delayed_ok}")
-    if counts != {"flat": 0, "base": 0, "tf_flat": 4 * frames, "tf_base": 0,
-                  "teacher": 3 * frames}:
+    if counts["tf_flat"] != 4 * frames or counts["teacher"] != 3 * frames \
+            or sum(counts.values()) != 7 * frames:
         return fail(f"noncausal: expected {4 * frames} tf_flat and "
                     f"{3 * frames} teacher launches, got {counts}")
     if o.shape != (B, frames * FS) or not np.isfinite(o).all() \
@@ -417,6 +472,120 @@ def main() -> int:
     nc_counts = counts
     print(f"[noncausal] {wall * 1e3 / frames:.4f} ms per step (host clock), "
           f"RT factor {B * frames * 0.01 / wall:.1f}x [{card}]")
+
+    # ---- 4b. the other synthesis modes: one K3 launch per frame
+    B, frames = STREAMING_PATH
+    v = Synthesizer(params=params, device=dev)
+    look = v.cfg.lookahead
+    feats = tiled_features(B, frames)
+    v.synthesize_streaming(v.reset_streaming(B, True), feats[:, :1])  # warm
+    torch.cuda.synchronize()
+    zero_counts()
+    with Recorder(sample_cuda) as rec:
+        t0 = time.perf_counter()
+        st, head = v.synthesize_streaming(v.reset_streaming(B, True),
+                                          feats[:, :look])
+        fresh = v.reset(B, per_stream_rng=True)
+        untouched = all(torch.equal(st["synth"][k], fresh[k]) for k in fresh)
+        st, tail = v.synthesize_streaming(st, feats[:, look:])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = dict(sample_cuda.launches)
+    calls.update(rec.calls)
+    o = tail.cpu().numpy()
+    silent = not bool(head.any())
+    print(f"[modes] synthesize_streaming B={B} x {frames} frames: launches "
+          f"{counts}; the first {look} frames are silence {silent} and leave "
+          f"the sample state and RNG a fresh reset's {untouched}; then pcm "
+          f"{o.shape}, finite {bool(np.isfinite(o).all())}, max |pcm| "
+          f"{np.abs(o).max()}; {wall * 1e3 / frames:.4f} ms per frame (host "
+          f"clock) [{card}]")
+    if counts["tf_flat"] != frames or sum(counts.values()) != frames:
+        return fail(f"streaming: expected {frames} tf_flat launches and "
+                    f"nothing else, got {counts}")
+    if not (silent and untouched and o.shape == (B, (frames - look) * FS)
+            and np.isfinite(o).all() and 0 < np.abs(o).max() <= 32767):
+        return fail("streaming: output is not silence, then audio")
+    mode_counts = {"streaming": counts["tf_flat"]}
+
+    B, frames = TEACHER_PATH
+    feats = tiled_features(B, frames)
+    target = tiled_speech(B, frames)
+    preload = np.random.RandomState(9).randint(0, FS + 1, (B, frames))
+    zero_counts()
+    with Recorder(sample_cuda) as rec:
+        st, out = v.synthesize_teacher(v.reset(B, per_stream_rng=True),
+                                       feats, target, preload)
+        torch.cuda.synchronize()
+    counts = dict(sample_cuda.launches)
+    calls.update(rec.calls)
+    o = out.cpu().numpy()
+    forced = (np.arange(FS)[None, None, :] < preload[:, :, None]).reshape(
+        B, frames * FS)
+    forced_ok = bool((o[forced] == target[forced]).all())
+    print(f"[modes] synthesize_teacher B={B} x {frames} frames: launches "
+          f"{counts}; {forced.mean():.3f} of the samples forced, equal to "
+          f"the target {forced_ok}; finite {bool(np.isfinite(o).all())}, "
+          f"max |pcm| {np.abs(o).max()}")
+    if counts["tf_flat"] != frames or sum(counts.values()) != frames:
+        return fail(f"teacher: expected {frames} tf_flat launches and "
+                    f"nothing else, got {counts}")
+    if not (forced_ok and np.isfinite(o).all()
+            and np.abs(o).max() <= 32767):
+        return fail("teacher: forced samples differ from the target")
+    mode_counts["teacher"] = counts["tf_flat"]
+
+    # ---- 4c. the strict engine: 8 K3 launches per step, no K4
+    strict_runs, strict_engines = {}, {}
+    for B, frames in STRICT_PATHS:
+        eng = plc.StrictCausalPLCEngine(params, plc_params, device=dev)
+        pcm_in, lost = tiled_speech(B, frames), loss_flags(B, frames)
+        if B == 1:
+            lost[0, 3:5] = True     # one stream: make sure it loses frames
+        eng.run(eng.init_state(B), pcm_in[:, :FS], lost[:, :1])      # warm
+        torch.cuda.synchronize()
+        zero_counts()
+        with Recorder(sample_cuda) as rec:
+            t0 = time.perf_counter()
+            st, out = eng.run(eng.init_state(B), pcm_in, lost)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = dict(sample_cuda.launches)
+        calls.update(rec.calls)
+        o = out.cpu().numpy()
+        tag = f"StrictCausalPLCEngine B={B}"
+        blend = np.concatenate([np.zeros((B, 1), bool), lost[:, :-1]], 1) \
+            & ~lost
+        good = np.repeat(~lost & ~blend, FS, axis=1)
+        half2 = np.repeat(blend, FS, axis=1) \
+            & (np.arange(frames * FS) % FS >= FS // 2)[None, :]
+        good_ok = bool((o[good] == pcm_in[good]).all())
+        blend_ok = bool((o[half2] == pcm_in[half2]).all())
+        print(f"[strict] {tag} x {frames} frames: launches {counts}; lost "
+              f"{lost.mean():.3f} of the frames, blend {blend.mean():.3f}; "
+              f"out {o.shape}, finite {bool(np.isfinite(o).all())}, max "
+              f"|out| {np.abs(o).max()}, good rows equal input {good_ok}, "
+              f"blend rows equal input in their second half {blend_ok}")
+        if counts["tf_flat"] != 8 * frames \
+                or sum(counts.values()) != 8 * frames:
+            return fail(f"{tag}: expected {8 * frames} tf_flat launches (8 "
+                        f"per step) and nothing else, got {counts}")
+        if o.shape != (B, frames * FS) or not np.isfinite(o).all() \
+                or np.abs(o).max() > 32767:
+            return fail(f"{tag}: output is not finite int16-range audio")
+        if not (good_ok and blend_ok):
+            return fail(f"{tag}: a good frame did not pass through")
+        if not (lost.any() and blend.any()
+                and np.abs(o[np.repeat(lost, FS, axis=1)]).max() > 0):
+            return fail(f"{tag}: nothing was concealed")
+        for given, ns, _ in STRICT_LAUNCHES:
+            if ("tf_flat", given, ns, B) not in rec.calls:
+                return fail(f"{tag}: no launch with {given}, ns={ns}")
+        strict_runs[B] = counts["tf_flat"]
+        strict_engines[B] = (eng, st, pcm_in, lost)
+        print(f"[strict] {tag}: {wall * 1e3 / frames:.4f} ms per step (host "
+              f"clock, synchronised at the end), RT factor "
+              f"{B * frames * 0.01 / wall:.1f}x [{card}]")
 
     # ---- 5. every launched (kernel, argument set, nsamples, batch) held
     # against its plain version on the last launch's own arguments
@@ -475,21 +644,9 @@ def main() -> int:
         elif not hold_synth(tag, *calls[key]):
             return fail(f"{tag}: kernel disagrees with the plain version")
 
-    # the argument set with n_active (target + force_from + n_active, as
-    # lpcnet_tpu/verify.py holds it), on made-up counts and the state and
-    # conditions of the PLC run's last launch
     big = PLC_PATHS[0][1]
     tables, state, cond, cfg, ns, kw = calls[
         ("tf_flat", ("target", "force_from"), FS, big)]
-    rs = np.random.RandomState(7)
-    made_up = dict(kw, force_from=torch.as_tensor(
-        rs.randint(40, FS, big), dtype=torch.int32, device=dev),
-        n_active=torch.as_tensor(rs.randint(0, FS + 1, big),
-                                 dtype=torch.int32, device=dev))
-    if not hold_synth(f"tf_flat (target+force_from+n_active made up, ns="
-                      f"{ns}, B={big}) vs plain", tables, state, cond, cfg,
-                      ns, made_up):
-        return fail("n_active: kernel disagrees with the plain version")
 
     # K4 against a fully forced K3 launch, both through their wrappers
     target = kw["target"]
@@ -573,15 +730,71 @@ def main() -> int:
               + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
               + f" [{card}]")
 
+    # the strict step's split: its 10 frame_net_step calls, its 8 launches
+    # (replayed from the run's last arguments, CUDA events), the rest of
+    # what the host issues
+    strict_ms = {}
+    for B, _ in STRICT_PATHS:
+        eng, st, pcm_in, lost = strict_engines[B]
+        fr = torch.as_tensor(pcm_in[:, -FS:], device=dev)
+        lo = torch.as_tensor(lost[:, -1], device=dev)
+        feats36 = torch.zeros((B, 36), device=dev)
+        replay = [(calls[("tf_flat", given, ns, B)], n)
+                  for given, ns, n in STRICT_LAUNCHES]
+
+        def fnet10():
+            for _ in range(10):
+                lpcnet_model.frame_net_step(eng.params, eng.tables,
+                                            st["fnet"], feats36, eng.cfg)
+
+        def launches8():
+            for (tables, state, cond, cfg, ns, kw), n in replay:
+                for _ in range(n):
+                    sample_cuda.synth_samples(tables, state, cond, cfg, ns,
+                                              **kw)
+
+        t_step = host_ms(lambda: eng.step(st, fr, lo), 3)
+        t_issue = host_ms(lambda: eng.step(st, fr, lo), 3, wait=False)
+        t_fnet = host_ms(fnet10, 3)
+        t_kern = cuda_ms(launches8, 3)
+        strict_ms[B] = t_step
+        print(f"[split] StrictCausalPLCEngine step B={B}, ms: whole step "
+              f"{t_step:.3f} (host clock, synchronised); the host issues "
+              f"for {t_issue:.3f} before it waits (its own timing); its 10 "
+              f"frame_net_step calls alone {t_fnet:.3f} (host clock), its 8 "
+              f"launches alone {t_kern:.3f} (CUDA events; they run beside "
+              f"the host's issuing), the rest of the issuing "
+              f"{t_issue - t_fnet:.3f} [{card}]")
+
+    # ---- 7. verify_on_device: every kernel against its oracle, the strict
+    # engine through the kernels against itself through the plain loops
+    t0 = time.perf_counter()
+    zero_counts()
+    report = verify.verify_on_device(plc_frames=VERIFY_STRICT_FRAMES,
+                                     device=dev)
+    torch.cuda.synchronize()
+    gates_v = {k: g["measured"] for k, g in report.items()
+               if isinstance(g, dict) and "ok" in g}
+    print(f"[verify] {len(gates_v)} gates passed in "
+          f"{time.perf_counter() - t0:.1f} s, launches "
+          f"{dict(sample_cuda.launches)}: {json.dumps(gates_v)} [{card}]")
+    sp = report["strict_plc_step"]["measured"]
+    if not (report.get("ok") and sp["lost_steps"] and sp["blend_steps"]
+            and sp["good_steps"]):
+        return fail(f"verify: the strict run lacks a kind of step: {sp}")
+
     # ---- the kernels' line
     kernels = []
     big = PATHS[0][1]
     bound, bound_by = sample_bound_ms(big, FS, False)
-    for variant, line in (("flat", 469), ("base", 440)):
+    for variant, line, source in (("flat", 469, "sample_frame"),
+                                  ("base", 440, "sample_frame"),
+                                  ("fuse", 501, "sample_frame_opt"),
+                                  ("opt", 501, "sample_frame_opt")):
         g, g1 = gates[(variant, big)], gates[(variant, 1)]
         kernels.append({
             "name": f"sample_frame_{variant}", "route": "cuda",
-            "source": "lpcnet_tpu_torch/csrc/sample_frame.cu",
+            "source": f"lpcnet_tpu_torch/csrc/{source}.cu",
             "replaces": f"lpcnet_tpu/kernels/sample_pallas.py:{line}",
             "launches": runs[(variant, big)],
             "max_abs_err": max(g["max_abs_err"], g1["max_abs_err"]),
@@ -611,6 +824,12 @@ def main() -> int:
             "batch": big, "held_argument_sets": len(hs)}
         if variant == "flat":
             row.update(launches_noncausal=nc_counts["tf_flat"],
+                       launches_strict=strict_runs[big],
+                       launches_strict_b1=strict_runs[1],
+                       launches_streaming=mode_counts["streaming"],
+                       launches_teacher=mode_counts["teacher"],
+                       strict_step_ms=strict_ms[big],
+                       strict_step_ms_b1=strict_ms[1],
                        launches_b1=plc_runs[("flat", 1)],
                        ms_b1=ktime[("tf_flat", 1)],
                        bound_ms_b1=sample_bound_ms(1, FS, True)[0])

@@ -2,8 +2,10 @@
 subcommands of lpcnet_tpu/cli.py, reference lpcnet_demo -synthesis and
 -plc_file).
 
-    python -m lpcnet_tpu_torch synthesis feats.f32 out.pcm [--device cpu]
-    python -m lpcnet_tpu_torch plc <loss> in.pcm out.pcm [--device cpu]
+    python -m lpcnet_tpu_torch synthesis feats.f32 out.pcm [--streaming |
+        --temperature] [--device cpu]
+    python -m lpcnet_tpu_torch plc <loss> in.pcm out.pcm [--options causal|
+        causal_dc|noncausal|noncausal_dc|strict] [--device cpu]
 
 Feature files are float32 frames of 36; audio is 16-bit little-endian PCM
 at 16 kHz (headerless, or .wav on input). Omitted --weights and
@@ -50,15 +52,24 @@ def cmd_synthesis(args) -> int:
     """Feature frames -> PCM, one stream, CHUNK_FRAMES frames per call."""
     from . import convert
     from .vocoder import Synthesizer
+    if args.temperature and args.streaming:
+        print("error: --temperature needs the batched path (no --streaming)",
+              file=sys.stderr)
+        return 1
     feats = read_features(args.input)
     params = convert.load_lpcnet(args.weights, device=args.device)
     voc = Synthesizer(params=params, device=args.device)
-    state = voc.reset(1)
+    if args.streaming:
+        state, synth = voc.reset_streaming(1), voc.synthesize_streaming
+    elif args.temperature:
+        state, synth = voc.reset(1), voc.synthesize_temperature
+    else:
+        state, synth = voc.reset(1), voc.synthesize
     outs = []
     t_synth = 0.0
     for t0 in range(0, feats.shape[0], CHUNK_FRAMES):
         t = time.perf_counter()
-        state, pcm = voc.synthesize(state, feats[None, t0:t0 + CHUNK_FRAMES])
+        state, pcm = synth(state, feats[None, t0:t0 + CHUNK_FRAMES])
         if voc.device.type == "cuda":
             torch.cuda.synchronize(voc.device)
         t_synth += time.perf_counter() - t
@@ -95,18 +106,17 @@ def cmd_plc(args) -> int:
     (lpcnet_demo -plc_file, src/lpcnet_demo.c:220-249)."""
     from . import convert
     from .constants import TRAINING_OFFSET
-    from .plc import NonCausalPLCEngine, PLCEngine, PLCOptions
-    if args.options == "strict":
-        print("plc: the strict causal engine is not ported yet; modes: "
-              + ", ".join(m for m in PLC_MODES if m != "strict"),
-              file=sys.stderr)
-        return 2
+    from .plc import (NonCausalPLCEngine, PLCEngine, PLCOptions,
+                      StrictCausalPLCEngine)
     pcm = read_pcm(args.input)
     n_fr = len(pcm) // FRAME_SIZE // 2 * 2
     pcm = pcm[:n_fr * FRAME_SIZE]
     flags = _read_loss_flags(args.loss, n_fr // 2, args.seed)
     noncausal = "noncausal" in args.options
-    engine = (NonCausalPLCEngine if noncausal else PLCEngine)(
+    cls = (NonCausalPLCEngine if noncausal
+           else StrictCausalPLCEngine if args.options == "strict"
+           else PLCEngine)
+    engine = cls(
         convert.load_lpcnet(args.weights, device=args.device),
         convert.load_plc(args.plc_weights, device=args.device),
         options=PLCOptions(remove_dc="dc" in args.options),
@@ -141,6 +151,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("output", help="s16le PCM output")
     p.add_argument("--weights", default=None,
                    help="save_params checkpoint (default: shipped vocoder)")
+    p.add_argument("--streaming", action="store_true",
+                   help="reference-exact streaming engine (causal convs, "
+                   "FEATURES_DELAY warm-up silence)")
+    p.add_argument("--temperature", action="store_true",
+                   help="temperature/pdf-floor sampling (plain loop; not "
+                   "with --streaming)")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda)")
     p.set_defaults(fn=cmd_synthesis)
@@ -151,7 +167,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("output", help="s16le PCM output")
     p.add_argument("--options", default="causal", choices=PLC_MODES,
                    help="the reference demo's 4 PLC methods "
-                   "(lpcnet_demo.c:120-127); strict is not ported yet")
+                   "(lpcnet_demo.c:120-127) plus strict = the replica of "
+                   "the reference's default causal engine")
     p.add_argument("--weights", default=None,
                    help="vocoder checkpoint (default: shipped vocoder)")
     p.add_argument("--plc-weights", default=None,

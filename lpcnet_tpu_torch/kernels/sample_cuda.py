@@ -1,15 +1,15 @@
-"""The sample kernels (csrc/sample_frame.cu, csrc/synth_samples.cu,
-csrc/teacher_advance.cu) bound to PyTorch: the counterparts of
-synthesize_frame(s)_pallas, synth_samples_pallas and teacher_advance_pallas
-in lpcnet_tpu/kernels/sample_pallas.py.
+"""The sample kernels (csrc/sample_frame.cu, csrc/sample_frame_opt.cu,
+csrc/synth_samples.cu, csrc/teacher_advance.cu) bound to PyTorch: the
+counterparts of synthesize_frame(s)_pallas, synth_samples_pallas and
+teacher_advance_pallas in lpcnet_tpu/kernels/sample_pallas.py.
 
 For tensors on the CPU the functions run the plain PyTorch version
 (kernels/sample_scan.py). For CUDA tensors they launch the kernel on the
 current stream, or raise; there is no fallback. `launches[name]` counts
 kernel launches (and nothing else), so a run can show that it went through
 the kernels: 'flat' / 'base' for the free-run frame kernel with either
-sampler, 'tf_flat' / 'tf_base' for synth_samples, 'teacher' for
-teacher_advance.
+sampler, 'fuse' / 'opt' for the fused frame kernel, 'tf_flat' / 'tf_base'
+for synth_samples, 'teacher' for teacher_advance.
 
 The state dict layout is sample_scan's. The returned state is new memory.
 """
@@ -24,14 +24,22 @@ from ..ops.mulaw import ULAW2LIN_TABLE
 from ..ops.tables import SAMPLING_LOGIT_TABLE
 from . import _build, sample_scan
 
-VARIANTS = ("flat", "base")
+VARIANTS = ("flat", "base")                      # synth_samples (K3)
+# the frame kernel has the fused variants too: 'fuse' (one embedding table,
+# one dual-FC product) and 'opt' (fuse with the thresholds drawn one sample
+# ahead); all four give the same bits
+FRAME_VARIANTS = VARIANTS + ("fuse", "opt")
 # the widths the kernels are compiled for (csrc/lpcnet_sample.cuh)
 NA, NB, NL = GRU_A_SIZE, GRU_B_SIZE, DUAL_FC_OUT
 
-launches = {"flat": 0, "base": 0, "tf_flat": 0, "tf_base": 0, "teacher": 0}
+launches = {"flat": 0, "base": 0, "fuse": 0, "opt": 0, "tf_flat": 0,
+            "tf_base": 0, "teacher": 0}
 
 _WEIGHTS = ("tbl_sig", "tbl_pred", "tbl_exc", "wr_a", "br_a", "wi_b", "wr_b",
             "br_b")
+_STATE_PTRS = ("gru_a_in", "gru_b_in", "sig_in", "exc_in", "deemph_in",
+               "rng_in", "gru_a_out", "gru_b_out", "sig_out", "exc_out",
+               "deemph_out", "rng_out")
 
 
 class _Params(ctypes.Structure):
@@ -41,14 +49,24 @@ class _Params(ctypes.Structure):
         + [(n, ctypes.c_longlong)
            for n in ("ca_stride", "cb_stride", "lpc_stride")]
         + [(n, ctypes.c_void_p) for n in _WEIGHTS + (
-            "dfc_w", "dfc_b", "dfc_f", "logit_tbl",
-            "gru_a_in", "gru_b_in", "sig_in", "exc_in", "deemph_in",
-            "rng_in", "gru_a_out", "gru_b_out", "sig_out", "exc_out",
-            "deemph_out", "rng_out", "pcm")]
+            "dfc_w", "dfc_b", "dfc_f", "logit_tbl") + _STATE_PTRS + ("pcm",)]
         + [("pcm_stride", ctypes.c_longlong), ("target", ctypes.c_void_p),
            ("tgt_stride", ctypes.c_longlong), ("preload", ctypes.c_void_p),
            ("force_from", ctypes.c_void_p), ("n_active", ctypes.c_void_p),
            ("batch", ctypes.c_int), ("nsamples", ctypes.c_int),
+           ("preemph", ctypes.c_float)])
+
+
+class _OptParams(ctypes.Structure):
+    """ctypes twin of LpcnetOptParams in csrc/sample_frame_opt.cu."""
+    _fields_ = (
+        [(n, ctypes.c_void_p) for n in ("cond_a", "cond_b", "lpc")]
+        + [(n, ctypes.c_longlong)
+           for n in ("ca_stride", "cb_stride", "lpc_stride")]
+        + [(n, ctypes.c_void_p) for n in ("tbl_cat",) + _WEIGHTS[3:] + (
+            "dfc_w12", "dfc_b12", "dfc_f", "logit_tbl") + _STATE_PTRS + (
+            "pcm",)]
+        + [("pcm_stride", ctypes.c_longlong), ("batch", ctypes.c_int),
            ("preemph", ctypes.c_float)])
 
 
@@ -142,6 +160,15 @@ def _check_state(state, batch: int, device):
     _check("rng", state["rng"], (batch, 4), torch.int64, device)
 
 
+def _state_ptrs(state, new) -> Dict[str, int]:
+    """The state pointers of an argument block: in from state, out to new."""
+    leaves = (("gru_a", "gru_a"), ("gru_b", "gru_b"), ("sig", "last_sig"),
+              ("exc", "last_exc"), ("deemph", "deemph"), ("rng", "rng"))
+    ptrs = {f"{f}_in": state[k].data_ptr() for f, k in leaves}
+    ptrs.update({f"{f}_out": new[k].data_ptr() for f, k in leaves})
+    return ptrs
+
+
 def _sample_params(tables, state, new, pcm, batch, nsamples, cfg) -> _Params:
     """The argument block of the sample loop but for its conditions."""
     dfc = tables["dual_fc"]
@@ -150,17 +177,29 @@ def _sample_params(tables, state, new, pcm, batch, nsamples, cfg) -> _Params:
         dfc_w=dfc["w"].data_ptr(), dfc_b=dfc["b"].data_ptr(),
         dfc_f=dfc["factor"].data_ptr(),
         logit_tbl=_logit_tbl(pcm.device).data_ptr(),
-        gru_a_in=state["gru_a"].data_ptr(),
-        gru_b_in=state["gru_b"].data_ptr(),
-        sig_in=state["last_sig"].data_ptr(),
-        exc_in=state["last_exc"].data_ptr(),
-        deemph_in=state["deemph"].data_ptr(), rng_in=state["rng"].data_ptr(),
-        gru_a_out=new["gru_a"].data_ptr(), gru_b_out=new["gru_b"].data_ptr(),
-        sig_out=new["last_sig"].data_ptr(),
-        exc_out=new["last_exc"].data_ptr(),
-        deemph_out=new["deemph"].data_ptr(), rng_out=new["rng"].data_ptr(),
+        **_state_ptrs(state, new),
         pcm=pcm.data_ptr(), pcm_stride=pcm.stride(0), batch=batch,
         nsamples=nsamples, preemph=cfg.preemph)
+
+
+def _opt_params(tables, state, new, pcm, batch, cfg) -> _OptParams:
+    """The argument block of the fused frame kernel but for its conditions;
+    the fused operands are built once per tables dict."""
+    fused = sample_scan.fused_operands(tables)
+    f32 = torch.float32
+    _check("tbl_cat", fused["tbl_cat"], (3 * NL, 3 * NA), f32, pcm.device)
+    _check("dfc_w12", fused["dfc_w12"], (NB, 2 * NL), f32, pcm.device)
+    _check("dfc_b12", fused["dfc_b12"], (2 * NL,), f32, pcm.device)
+    return _OptParams(
+        tbl_cat=fused["tbl_cat"].data_ptr(),
+        **{k: tables[k].data_ptr() for k in _WEIGHTS[3:]},
+        dfc_w12=fused["dfc_w12"].data_ptr(),
+        dfc_b12=fused["dfc_b12"].data_ptr(),
+        dfc_f=tables["dual_fc"]["factor"].data_ptr(),
+        logit_tbl=_logit_tbl(pcm.device).data_ptr(),
+        **_state_ptrs(state, new),
+        pcm=pcm.data_ptr(), pcm_stride=pcm.stride(0), batch=batch,
+        preemph=cfg.preemph)
 
 
 def _variant_flat(variant: str) -> bool:
@@ -176,13 +215,21 @@ def synthesize_frames(tables: Dict[str, Any], state: Dict[str, torch.Tensor],
     """Free-run synthesis of T frames for B streams, one launch per frame.
 
     conds: cond_a (B,T,3Na), cond_b (B,T,3Nb), lpc (B,T,16). variant: 'flat'
-    (flat sampling tree, K1) or 'base' (walked tree, K2); the two give the
-    same bits. Returns (new_state, pcm (B, T*160) float32)."""
-    flat = _variant_flat(variant)
+    (flat sampling tree, K1), 'base' (walked tree, K2), 'fuse' or 'opt' (the
+    fused frame kernel K5, without and with the thresholds drawn one sample
+    ahead); all give the same bits. Returns (new_state, pcm (B, T*160)
+    float32)."""
+    if variant not in FRAME_VARIANTS:
+        raise ValueError(f"variant must be one of {FRAME_VARIANTS}, not "
+                         f"{variant!r}")
+    fused = variant in ("fuse", "opt")
     device = conds["cond_a"].device
     if device.type == "cpu":
+        if fused:
+            return sample_scan.synthesize_frames_opt(
+                tables, state, conds, cfg, pipeline_thr=variant == "opt")
         return sample_scan.synthesize_frames(tables, state, conds, cfg,
-                                             flat=flat)
+                                             flat=variant == "flat")
     if device.type != "cuda":
         raise ValueError(f"no frame kernel for device {device}")
     _check_cfg(cfg)
@@ -197,10 +244,16 @@ def synthesize_frames(tables: Dict[str, Any], state: Dict[str, torch.Tensor],
     if T == 0:
         return ({k: v.clone() for k, v in state.items()},
                 torch.empty((B, 0), dtype=f32, device=device))
-    lib = _lib("sample_frame", "lpcnet_sample_frame", _Params)
     new = {k: torch.empty_like(v) for k, v in state.items()}
     pcm = torch.empty((B, T * FRAME_SIZE), dtype=f32, device=device)
-    p = _sample_params(tables, state, new, pcm, B, FRAME_SIZE, cfg)
+    if fused:
+        lib = _lib("sample_frame_opt", "lpcnet_sample_frame_opt", _OptParams)
+        launch, switch = lib.lpcnet_sample_frame_opt, int(variant == "opt")
+        p = _opt_params(tables, state, new, pcm, B, cfg)
+    else:
+        lib = _lib("sample_frame", "lpcnet_sample_frame", _Params)
+        launch, switch = lib.lpcnet_sample_frame, int(variant == "flat")
+        p = _sample_params(tables, state, new, pcm, B, FRAME_SIZE, cfg)
     p.ca_stride, p.cb_stride = T * 3 * NA, T * 3 * NB
     p.lpc_stride = T * LPC_ORDER
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -210,8 +263,8 @@ def synthesize_frames(tables: Dict[str, Any], state: Dict[str, torch.Tensor],
             p.cond_b = conds["cond_b"].data_ptr() + 4 * t * 3 * NB
             p.lpc = conds["lpc"].data_ptr() + 4 * t * LPC_ORDER
             p.pcm = pcm.data_ptr() + 4 * t * FRAME_SIZE
-            _raise_on(lib.lpcnet_sample_frame(ctypes.byref(p), int(flat),
-                                              stream), lib, "sample_frame")
+            _raise_on(launch(ctypes.byref(p), switch, stream), lib,
+                      f"sample_frame ({variant})")
             launches[variant] += 1
             # later frames update the new state in place
             p.gru_a_in, p.gru_b_in = p.gru_a_out, p.gru_b_out

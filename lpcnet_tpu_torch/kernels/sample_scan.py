@@ -1,8 +1,11 @@
 """The 16 kHz autoregressive synthesis loop in plain PyTorch, batched over
 streams: the twin of lpcnet_tpu/kernels/sample_scan.py (free-run, teacher
-forcing, per-stream active counts, the GRU-only teacher advance) and the
-oracle for the CUDA kernels (csrc/sample_frame.cu, csrc/synth_samples.cu,
-csrc/teacher_advance.cu).
+forcing, per-stream active counts, the GRU-only teacher advance,
+temperature sampling) and the oracle for the CUDA kernels
+(csrc/sample_frame.cu, csrc/sample_frame_opt.cu, csrc/synth_samples.cu,
+csrc/teacher_advance.cu). synthesize_frames_opt is the plain version of the
+fused frame kernel (sample_pallas.py::_synth_loop_opt, variants 'fuse' and
+'opt').
 
 Per sample, per stream (reference lpcnet.c:235-271, nnet.c:163-214):
   1. order-16 LPC prediction
@@ -39,6 +42,7 @@ from ..models import layers
 from ..ops import activations, kiss99
 from ..ops.mulaw import lin2ulaw, ulaw2lin
 from ..ops.tables import SAMPLING_LOGIT_TABLE
+from ..training.losses import tree_to_pdf
 
 # The flat scorer's static tables (sample_pallas.py:99-127). The 8-bit tree
 # walk visits heap node n_b(c) = 2^b + (c >> (8-b)) at level b and takes bit
@@ -119,17 +123,23 @@ def _thresholds(rng: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return tbl[torch.stack(byts, dim=-1)], rng
 
 
-def _sample_tree(logits: torch.Tensor, rng: torch.Tensor):
-    """Hierarchical 8-bit sampling by walking the tree (sample_mdense,
-    nnet.c:163-214). logits: (B, 256) before sigmoid. Returns (exc (B,)
-    int32, new rng)."""
-    thr, rng = _thresholds(rng)
+def _walk_tree(logits: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
+    """The 8-level walk of the sampling tree (nnet.c:186-211) under the
+    thresholds thr (B, 8). Returns exc (B,) int32."""
     val = torch.zeros(logits.shape[:-1], dtype=torch.int64,
                       device=logits.device)
     for b in range(8):
         logit = torch.gather(logits, -1, (val | (1 << b))[..., None])[..., 0]
         val = (val << 1) | (thr[..., b] < logit).to(torch.int64)
-    return val.to(torch.int32), rng
+    return val.to(torch.int32)
+
+
+def _sample_tree(logits: torch.Tensor, rng: torch.Tensor):
+    """Hierarchical 8-bit sampling by walking the tree (sample_mdense,
+    nnet.c:163-214). logits: (B, 256) before sigmoid. Returns (exc (B,)
+    int32, new rng)."""
+    thr, rng = _thresholds(rng)
+    return _walk_tree(logits, thr), rng
 
 
 def _sample_flat(logits: torch.Tensor, rng: torch.Tensor):
@@ -147,6 +157,24 @@ def _sample_flat(logits: torch.Tensor, rng: torch.Tensor):
     return exc.to(torch.int32), rng
 
 
+def _sample_temperature(logits: torch.Tensor, rng: torch.Tensor,
+                        temp_exp: torch.Tensor, approx: bool):
+    """Temperature/PDF-floor sampling (training_tf2/test_lpcnet.py:131-138):
+    expand the tree nodes to a 256-way pdf, sharpen voiced frames with
+    p *= p^temp_exp, cut the tail below 0.002, and draw by inverse CDF from
+    ONE KISS99 uniform. temp_exp: (B,). A quality knob; the tree sampler is
+    the C-bit-exact path. Returns (exc (B,) int32, new rng)."""
+    pdf = tree_to_pdf(activations.get("sigmoid", approx)(logits))
+    pdf = pdf * torch.pow(torch.clamp(pdf, min=1e-18), temp_exp[..., None])
+    pdf = pdf / (1e-18 + pdf.sum(-1, keepdim=True))
+    pdf = torch.clamp(pdf - 0.002, min=0.0)
+    pdf = pdf / (1e-8 + pdf.sum(-1, keepdim=True))
+    rng, r = kiss99.kiss99_next(rng)
+    u = r.to(torch.float32) / 4294967296.0
+    exc = (torch.cumsum(pdf, dim=-1) < u[..., None]).sum(-1)
+    return torch.clamp(exc, 0, 255).to(torch.int32), rng
+
+
 def _lpc_pred(sig: torch.Tensor, lpc: torch.Tensor) -> torch.Tensor:
     """-sum_k sig[..., k] * lpc[..., k], the 16 products added in order
     from k = 0 (the most recent sample), as the kernels add them."""
@@ -162,12 +190,14 @@ def sample_step(tables: Dict[str, Any], state: Dict[str, torch.Tensor],
                 lpc: torch.Tensor, approx: bool, preemph: float,
                 flat: bool = False,
                 target: Optional[torch.Tensor] = None,
-                teacher_mask: Optional[torch.Tensor] = None):
+                teacher_mask: Optional[torch.Tensor] = None,
+                temp_exp: Optional[torch.Tensor] = None):
     """One 1/16000 s step for all streams. cond_*: (B, 3N), lpc: (B, 16).
     target (B,) with teacher_mask (B,) bool: where the mask is set the step
     follows the target (lpcnet.c:256-261) and emits it; the sampler runs and
-    the RNG advances all the same. Returns (new_state, out (B,) rounded
-    samples)."""
+    the RNG advances all the same. temp_exp (B,): the sharpening exponent
+    of temperature sampling, which takes the place of the tree sampler.
+    Returns (new_state, out (B,) rounded samples)."""
     # 1. LPC prediction (lpcnet.c:252)
     pred = _lpc_pred(state["last_sig"], lpc)
     # 2-4. GRU-A from three table rows + the frame condition
@@ -191,7 +221,12 @@ def sample_step(tables: Dict[str, Any], state: Dict[str, torch.Tensor],
     y1, y2 = (act(seq_dot(gru_b, dfc["w"][c]) + dfc["b"][c])
               * dfc["factor"][c] for c in (0, 1))
     logits = y1 + y2
-    exc, rng = (_sample_flat if flat else _sample_tree)(logits, state["rng"])
+    if temp_exp is not None:
+        exc, rng = _sample_temperature(logits, state["rng"], temp_exp,
+                                       approx)
+    else:
+        exc, rng = (_sample_flat if flat else _sample_tree)(logits,
+                                                            state["rng"])
     # 7. excitation -> signal, de-emphasis, clip, round (lpcnet.c:260-269)
     if target is not None:
         tf_sig = target - preemph * state["deemph"]
@@ -346,17 +381,141 @@ def teacher_advance(tables: Dict[str, Any], state: Dict[str, torch.Tensor],
 
 def synthesize_frames(tables: Dict[str, Any], state: Dict[str, torch.Tensor],
                       conds: Dict[str, torch.Tensor], cfg,
-                      flat: bool = False
+                      flat: bool = False,
+                      target: Optional[torch.Tensor] = None,
+                      preload: Optional[torch.Tensor] = None,
+                      temp_exp: Optional[torch.Tensor] = None
                       ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-    """Free-run synthesis of T frames for B streams.
+    """Synthesis of T frames for B streams.
 
     conds: cond_a (B,T,3Na), cond_b (B,T,3Nb), lpc (B,T,16) [frame rate].
-    Returns (new_state, pcm (B, T*frame_size) float32 rounded samples)."""
+    target: optional (B, T*frame_size) teacher waveform with preload (B, T)
+    int32: per frame, samples [0, preload) follow the target
+    (lpcnet_synthesize_impl's preload argument). temp_exp: optional (B, T)
+    per-frame sharpening exponents (temperature sampling). Returns
+    (new_state, pcm (B, T*frame_size) float32 rounded samples)."""
+    B, T = conds["cond_a"].shape[:2]
+    fs = cfg.frame_size
+    if target is not None and (preload is None or temp_exp is not None):
+        raise ValueError("a target needs preload counts and excludes "
+                         "temp_exp")
+    pcm = []
+    for t in range(T):
+        cond = {k: conds[k][:, t] for k in ("cond_a", "cond_b", "lpc")}
+        if target is not None:
+            state, p = synth_samples(
+                tables, state, cond, cfg, fs, flat=flat,
+                target=target[:, t * fs:(t + 1) * fs], preload=preload[:, t])
+        elif temp_exp is not None:
+            outs = []
+            for _ in range(fs):
+                state, out = sample_step(
+                    tables, state, cond["cond_a"], cond["cond_b"],
+                    cond["lpc"], cfg.approx, cfg.preemph,
+                    temp_exp=temp_exp[:, t])
+                outs.append(out)
+            p = torch.stack(outs, dim=1)
+        else:
+            state, p = synthesize_frame(tables, state, cond["cond_a"],
+                                        cond["cond_b"], cond["lpc"], cfg,
+                                        flat=flat)
+        pcm.append(p)
+    return state, torch.cat(pcm, dim=1).reshape(B, T * fs)
+
+
+def fused_operands(tables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The operands the fused frame kernel takes in place of the three
+    embedding tables and the two dual-FC channels, as
+    synthesize_frame_pallas builds them (sample_pallas.py:1000-1008):
+    tbl_cat (768, 3Na) = [tbl_sig; tbl_pred; tbl_exc], dfc_w12 (Nb, 512) =
+    [w[0] | w[1]] and dfc_b12 (512,) = [b[0], b[1]]. Built once per tables
+    dict (on the tables' device) and kept in it under "fused"."""
+    if "fused" not in tables:
+        dfc = tables["dual_fc"]
+        tables["fused"] = {
+            "tbl_cat": torch.cat([tables["tbl_sig"], tables["tbl_pred"],
+                                  tables["tbl_exc"]], dim=0).contiguous(),
+            "dfc_w12": torch.cat([dfc["w"][0], dfc["w"][1]],
+                                 dim=1).contiguous(),
+            "dfc_b12": torch.cat([dfc["b"][0], dfc["b"][1]]).contiguous()}
+    return tables["fused"]
+
+
+def synthesize_frame_opt(tables: Dict[str, Any],
+                         state: Dict[str, torch.Tensor],
+                         cond_a: torch.Tensor, cond_b: torch.Tensor,
+                         lpc: torch.Tensor, cfg, pipeline_thr: bool = True,
+                         nsamples: Optional[int] = None):
+    """`nsamples` (default frame_size) free-run steps in the ordering of
+    sample_pallas.py::_synth_loop_opt, the plain version of the fused frame
+    kernel (csrc/sample_frame_opt.cu): the three table rows come from ONE
+    table tbl_cat at lsu, 256 + pu and 512 + exc, the dual-FC is ONE
+    (Nb, 512) product, and with pipeline_thr ('opt'; False is 'fuse') step
+    i draws the thresholds of step i + 1, the last lookahead draw rolled
+    back. Every sum runs in sample_step's order (the four GRU-A terms as
+    ((cond_a + sig) + pred) + exc, each of the 512 dual-FC columns over
+    k = 0..15), so state and pcm equal the walked-tree loop's bit for bit.
+    Returns (new_state, pcm (B, nsamples))."""
+    fused = fused_operands(tables)
+    tbl_cat, w12, b12 = fused["tbl_cat"], fused["dfc_w12"], fused["dfc_b12"]
+    factor = tables["dual_fc"]["factor"]
+    nl = factor.shape[-1]
+    act = activations.get("tanh", cfg.approx)
+    ns = cfg.frame_size if nsamples is None else nsamples
+    gru_a, gru_b, last_sig = state["gru_a"], state["gru_b"], state["last_sig"]
+    exc, deemph, rng = state["last_exc"], state["deemph"], state["rng"]
+    thr = None
+    if pipeline_thr:
+        thr, rng = _thresholds(rng)
+    outs = []
+    for i in range(ns):
+        if pipeline_thr:
+            # the NEXT sample's thresholds: independent of this sample's
+            # chain; the draw of the last step is rolled back
+            thr_n, rng_n = _thresholds(rng)
+            if i == ns - 1:
+                rng_n = rng
+        else:
+            thr, rng_n = _thresholds(rng)
+            thr_n = thr
+        pred = _lpc_pred(last_sig, lpc)
+        lsu = lin2ulaw(last_sig[:, 0]).long()
+        pu = lin2ulaw(pred).long()
+        zrh_a = (cond_a + tbl_cat[lsu] + tbl_cat[nl + pu]
+                 + tbl_cat[2 * nl + exc.long()])
+        gru_a = layers.gru_gates(
+            gru_a, zrh_a, seq_dot(gru_a, tables["wr_a"]) + tables["br_a"],
+            approx=cfg.approx)
+        zrh_b = cond_b + sliced_dot(gru_a, tables["wi_b"])
+        gru_b = layers.gru_gates(
+            gru_b, zrh_b, seq_dot(gru_b, tables["wr_b"]) + tables["br_b"],
+            approx=cfg.approx)
+        y12 = act(seq_dot(gru_b, w12) + b12)                   # (B, 512)
+        logits = y12[:, :nl] * factor[0] + y12[:, nl:] * factor[1]
+        exc = _walk_tree(logits, thr)
+        pcm = pred + ulaw2lin(exc)
+        last_sig = torch.cat([pcm[:, None], last_sig[:, :-1]], dim=-1)
+        deemph = pcm + cfg.preemph * deemph
+        outs.append(torch.floor(0.5 + torch.clamp(deemph, -32767.0,
+                                                  32767.0)))
+        rng, thr = rng_n, thr_n
+    return {"gru_a": gru_a, "gru_b": gru_b, "last_sig": last_sig,
+            "last_exc": exc, "deemph": deemph,
+            "rng": rng}, torch.stack(outs, dim=1)
+
+
+def synthesize_frames_opt(tables: Dict[str, Any],
+                          state: Dict[str, torch.Tensor],
+                          conds: Dict[str, torch.Tensor], cfg,
+                          pipeline_thr: bool = True
+                          ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """Free-run synthesis of T frames through synthesize_frame_opt; the
+    arguments and the result of synthesize_frames."""
     B, T = conds["cond_a"].shape[:2]
     pcm = []
     for t in range(T):
-        state, p = synthesize_frame(tables, state, conds["cond_a"][:, t],
-                                    conds["cond_b"][:, t],
-                                    conds["lpc"][:, t], cfg, flat=flat)
+        state, p = synthesize_frame_opt(
+            tables, state, conds["cond_a"][:, t], conds["cond_b"][:, t],
+            conds["lpc"][:, t], cfg, pipeline_thr=pipeline_thr)
         pcm.append(p)
     return state, torch.cat(pcm, dim=1).reshape(B, T * cfg.frame_size)

@@ -29,8 +29,12 @@ Its deliberate divergences from the C, as in the JAX package:
 NonCausalPLCEngine delays its output by 80 samples and blends the first
 good frame after a loss with a time-reversed synthesis. Its fully forced
 synthesis calls go to kernels/sample_cuda.teacher_advance, every other call
-to synth_samples. The strict replica of the C's default causal engine
-(StrictCausalPLCEngine in the JAX package) is not ported yet.
+to synth_samples.
+
+StrictCausalPLCEngine removes PLCEngine's divergences: it is the replica of
+the C's default causal engine (deferred feature buffer, 400-sample delay
+buffer with teacher-forced catch-up, 80/80 split conceal); eight
+synth_samples calls per step, each with per-stream active counts.
 
 The feature queue for FEC follows lpcnet_plc_fec_add / get_fec_or_pred /
 fec_rewind (lpcnet_plc.c:111-173). On a CUDA device every synthesis call
@@ -44,8 +48,8 @@ import numpy as np
 import torch
 
 from . import features as F
-from .constants import (FRAME_SIZE, NB_BANDS, NB_FEATURES, NB_TOTAL_FEATURES,
-                        PLC_MAX_FEC, TRAINING_OFFSET)
+from .constants import (FRAME_SIZE, LPC_ORDER, NB_BANDS, NB_FEATURES,
+                        NB_TOTAL_FEATURES, PLC_MAX_FEC, TRAINING_OFFSET)
 from .device import resolve_device
 from .kernels import sample_cuda, sample_scan
 from .models import lpcnet as lpcnet_model
@@ -155,22 +159,23 @@ class _Engine:
         return lpcnet_model.LPCNetConfig()
 
     def _synth_samples(self, synth_state, cond, nsamples, target=None,
-                       preload=None, force_from=None):
+                       preload=None, n_active=None, force_from=None):
         """Sample synthesis under one condition set. FULLY teacher-forced
-        calls (a target and no partial window) take teacher_advance: the
-        forced output IS the target, so only the GRU recurrences run per
-        sample. Every other call takes synth_samples. force_from: (B,)
-        int32, samples >= force_from are teacher-forced too."""
+        calls (a target, no partial window and no active counts) take
+        teacher_advance: the forced output IS the target, so only the GRU
+        recurrences run per sample. Every other call takes synth_samples.
+        force_from: (B,) int32, samples >= force_from are teacher-forced
+        too; n_active: (B,) int32, steps >= n_active freeze the stream."""
         cond = {k: cond[k].contiguous() for k in ("cond_a", "cond_b", "lpc")}
         if target is not None:
             target = target.contiguous()
-            if preload is None and force_from is None:
+            if preload is None and n_active is None and force_from is None:
                 return sample_cuda.teacher_advance(
                     self.tables, synth_state, cond, self.cfg, target)
         return sample_cuda.synth_samples(
             self.tables, synth_state, cond, self.cfg, nsamples,
-            target=target, preload=preload, force_from=force_from,
-            variant=self.variant)
+            target=target, preload=preload, n_active=n_active,
+            force_from=force_from, variant=self.variant)
 
     def _zeros(self, *shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=self.device)
@@ -404,6 +409,318 @@ class PLCEngine(_Engine):
                 "blend": lost, "fec_read": fec_read, "fec_skip": fec_skip,
                 "fec_keep": fec_keep, "dc_mem": dc_mem,
                 "syn_dc": syn_dc}, output
+
+
+class StrictCausalPLCEngine(_Engine):
+    """Replica of the reference causal PLC engine under its DEFAULT build
+    flags (PLC_SKIP_UPDATES defined, blending enabled, lpcnet_plc.c:40,
+    :64-66), unlike PLCEngine, which teacher-forces every good frame.
+
+    Reference semantics reproduced here:
+      * good frames only queue features into a 4-deep deferred buffer
+        (run_frame_network_deferred, lpcnet.c:123-135); the sample-rate
+        state stays frozen behind a PLC_BUF_SIZE (= FEATURES_DELAY*160+80
+        = 400) sample delay buffer (lpcnet_private.h:77,92-94)
+      * conceal first flushes the deferred features (lpcnet.c:137-145),
+        teacher-forces the buffered samples in <=160-sample chunks
+        (lpcnet_plc.c:298-312), then synthesizes 80 samples with the OLD
+        conditions and 80 with the newly predicted features, the 80-sample
+        split conceal (lpcnet_plc.c:315-320)
+      * the first good frame after a loss cross-fades a free-run
+        continuation into the input over 80 samples, restores the
+        snapshot, and teacher-forces the blended audio
+        (lpcnet_plc.c:215-231)
+
+    Batched over streams with per-stream masks; every path is computed for
+    every stream and selected, so one step is 8 synth_samples calls (4 of
+    160 samples, 4 of 80; each with per-stream active counts, never the
+    fully forced teacher_advance) and 10 frame_net_step calls. remove_dc
+    is not supported in strict mode; FEC queueing works through PLCEngine's
+    fec_add / fec_clear."""
+    MAX_FEAT_BUF = 4      # conv1.ksize + conv2.ksize - 2 (lpcnet.c:124)
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        if self.options.remove_dc:
+            raise ValueError("strict mode does not implement the DC filter")
+        self.buf_size = self.cfg.lookahead * FRAME_SIZE + TRAINING_OFFSET
+
+    fec_add = PLCEngine.fec_add
+    fec_clear = PLCEngine.fec_clear
+
+    def init_state(self, batch: int) -> Dict[str, Any]:
+        cfg, dev = self.cfg, self.device
+        net = plc_model.init_net_state(batch, self.plc_cfg, dev)
+        i32 = torch.int32
+        return {
+            "synth": sample_scan.init_state(batch, cfg, device=dev),
+            "fnet": lpcnet_model.frame_net_init_state(batch, cfg, dev),
+            "enc": F.init_state(batch, dev),
+            "plc_net": net,
+            "plc_copies": {k: v[:, None].repeat(1, cfg.lookahead + 1, 1)
+                           for k, v in net.items()},
+            # conditions left by the last run_frame_network (zeros after
+            # reset, like the calloc'd LPCNetState)
+            "last_cond": {
+                "cond_a": self._zeros(batch, 3 * cfg.gru_a_units),
+                "cond_b": self._zeros(batch, 3 * cfg.gru_b_units),
+                "lpc": self._zeros(batch, LPC_ORDER)},
+            "feat_buf": self._zeros(batch, self.MAX_FEAT_BUF, NB_FEATURES),
+            "feat_fill": self._zeros(batch, dtype=i32),
+            "pcm_buf": self._zeros(batch, self.buf_size + FRAME_SIZE),
+            "pcm_fill": torch.full((batch,), self.buf_size, dtype=i32,
+                                   device=dev),
+            "skip_analysis": self._zeros(batch, dtype=i32),
+            "blend": self._zeros(batch, dtype=torch.bool),
+            "features": self._zeros(batch, NB_FEATURES),
+            "loss_count": self._zeros(batch, dtype=i32),
+            "fec": self._zeros(batch, PLC_MAX_FEC, NB_FEATURES),
+            "fec_fill": self._zeros(batch, dtype=i32),
+            "fec_read": self._zeros(batch, dtype=i32),
+            "fec_keep": self._zeros(batch, dtype=i32),
+            "fec_skip": self._zeros(batch, dtype=i32),
+        }
+
+    # ------------------------------------------------------------------
+    def _fnet_masked(self, fstate, last_cond, feats20, mask):
+        """run_frame_network for masked streams; the others keep their
+        state and conditions."""
+        nf, cond = lpcnet_model.frame_net_step(
+            self.params, self.tables, fstate, _pad36(feats20), self.cfg)
+        cond = {k: cond[k] for k in ("cond_a", "cond_b", "lpc")}
+        return _sel(mask, nf, fstate), _sel(mask, cond, last_cond)
+
+    @staticmethod
+    def _push_copy(copies, cur, mask):
+        """Push the PLC-net state onto its copies where mask is set."""
+        shifted = {k: torch.cat([cur[k][:, None], cp[:, :-1]], dim=1)
+                   for k, cp in copies.items()}
+        return _sel(mask, shifted, copies)
+
+    def _feat_push(self, buf, fill, feats20, mask):
+        """run_frame_network_deferred (lpcnet.c:123-135): append, dropping
+        the oldest entry when the 4-deep buffer is full."""
+        full = fill >= self.MAX_FEAT_BUF
+        shifted = torch.where(full[:, None, None],
+                              torch.cat([buf[:, 1:], buf[:, -1:]], dim=1),
+                              buf)
+        new_fill = torch.where(full, fill, fill + 1)
+        slot = torch.arange(self.MAX_FEAT_BUF, device=buf.device)
+        onehot = slot[None, :] == (new_fill - 1)[:, None]
+        written = torch.where((onehot & mask[:, None])[..., None],
+                              feats20[:, None, :], shifted)
+        return (torch.where(mask[:, None, None], written, buf),
+                torch.where(mask, new_fill, fill))
+
+    def _get_fec_or_pred(self, plc, st, active, out_prev):
+        """get_fec_or_pred (lpcnet_plc.c:147-166), batched: the queued FEC
+        frame if there is one, else the network's prediction; the PLC net is
+        updated either way. st: the fec_* leaves. Returns (features, plc
+        state, fec leaves, took a FEC frame)."""
+        B = out_prev.shape[0]
+        has_fec = (st["fec_read"] < st["fec_fill"]) & (st["fec_skip"] == 0)
+        rd = torch.clamp(st["fec_read"], 0, PLC_MAX_FEC - 1).long()
+        fec_feat = st["fec"][torch.arange(B, device=self.device), rd]
+        one = torch.ones((B, 1), dtype=torch.float32, device=self.device)
+        in_fec = torch.cat([self._zeros(B, 2 * NB_BANDS), fec_feat, -one],
+                           dim=-1)
+        x = torch.where(has_fec[:, None], in_fec, torch.zeros_like(in_fec))
+        new_plc, pred = plc_model.step(self.plc_params, plc, x, self.plc_cfg)
+        out = torch.where(active[:, None],
+                          torch.where(has_fec[:, None], fec_feat, pred),
+                          out_prev)
+        take = active & has_fec
+        read = torch.where(take, st["fec_read"] + 1, st["fec_read"])
+        keep = torch.where(
+            take, torch.clamp(torch.maximum(
+                st["fec_keep"], read - self.cfg.lookahead - 1), min=0),
+            st["fec_keep"])
+        skip = torch.where(active & ~has_fec & (st["fec_skip"] > 0),
+                           st["fec_skip"] - 1, st["fec_skip"])
+        return (out, _sel(active, new_plc, plc),
+                {**st, "fec_read": read, "fec_keep": keep, "fec_skip": skip},
+                take)
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def step(self, state, pcm, lost):
+        """Process one 10-ms frame per stream.
+
+        pcm: (B, 160) float (ignored where lost); lost: (B,) bool.
+        Returns (new_state, output pcm (B, 160))."""
+        pcm, lost = self._f32(pcm), self._bool(lost)
+        B = pcm.shape[0]
+        cfg = self.cfg
+        off, FS = TRAINING_OFFSET, FRAME_SIZE
+        i32 = torch.int32
+        burg36 = burg_ops.burg_cepstral_analysis(pcm)
+        zeros20 = self._zeros(B, NB_FEATURES)
+        one = torch.ones((B, 1), dtype=torch.float32, device=self.device)
+
+        def counts(mask, n):
+            """n_active: n where mask is set, else 0."""
+            return torch.where(mask, n, 0).to(i32)
+
+        # =========== CONCEAL path (applied where lost) ===========
+        # 1. flush the deferred feature buffer (run_frame_network_flush)
+        fnetC, condC = state["fnet"], state["last_cond"]
+        for j in range(self.MAX_FEAT_BUF):
+            fnetC, condC = self._fnet_masked(
+                fnetC, condC, state["feat_buf"][:, j],
+                (j < state["feat_fill"]) & lost)
+        # 2. teacher-forced catch-up over the delay buffer
+        #    (lpcnet_plc.c:298-312)
+        synthC = state["synth"]
+        plcC, copiesC = state["plc_net"], state["plc_copies"]
+        fecC = {k: state[k] for k in
+                ("fec", "fec_fill", "fec_read", "fec_keep", "fec_skip")}
+        bufC, fillC = state["pcm_buf"], state["pcm_fill"]
+        skipC = state["skip_analysis"]
+        featuresC = state["features"]
+        for _ in range((self.buf_size + FS + FS - 1) // FS):
+            act = (fillC > 0) & lost
+            upd = torch.clamp(fillC, 0, FS)
+            copiesC = self._push_copy(copiesC, plcC, act)
+            featuresC, plcC, fecC, _ = self._get_fec_or_pred(
+                plcC, fecC, act, featuresC)
+            fnetC, condC = self._fnet_masked(fnetC, condC, featuresC, act)
+            synthC, _ = self._synth_samples(
+                synthC, condC, FS, target=bufC[:, :FS], preload=upd,
+                n_active=counts(act, upd))
+            shifted = torch.cat([bufC[:, FS:], self._zeros(B, FS)], dim=-1)
+            bufC = torch.where(act[:, None], shifted, bufC)
+            fillC = torch.where(act, fillC - upd, fillC)
+            skipC = skipC + act.to(i32)
+        # 3. 80 samples with the OLD conditions, 80 with the new prediction
+        #    (the 80-sample split conceal, lpcnet_plc.c:313-320)
+        copiesC = self._push_copy(copiesC, plcC, lost)
+        synthC, out_head = self._synth_samples(
+            synthC, condC, FS - off, n_active=counts(lost, FS - off))
+        featuresC, plcC, fecC, got_fec = self._get_fec_or_pred(
+            plcC, fecC, lost, featuresC)
+        lcC = torch.where(got_fec, 0, state["loss_count"] + 1)
+        c0 = torch.clamp(featuresC[:, :1] + _attenuation(lcC)[:, None],
+                         min=-10.0)
+        featuresC = torch.cat([c0, featuresC[:, 1:]], dim=-1)
+        fnetC, condC = self._fnet_masked(fnetC, condC, featuresC, lost)
+        synthC, out_tail = self._synth_samples(
+            synthC, condC, off, n_active=counts(lost, off))
+        out_conceal = torch.cat([out_head, out_tail], dim=-1)
+
+        # =========== UPDATE path (good frames) ===========
+        blend = ~lost & state["blend"]
+        goodA = ~lost & ~blend
+        # --- blend: restore copy, predict, cross-fade, teacher-force
+        #     (lpcnet_plc.c:210-231)
+        plc_rest = _sel(blend, {k: c[:, -1]
+                                for k, c in state["plc_copies"].items()},
+                        state["plc_net"])
+        plcB, predB = plc_model.step(
+            self.plc_params, plc_rest,
+            torch.cat([burg36, zeros20, one], dim=-1), self.plc_cfg)
+        featbufB, featfillB = state["feat_buf"], state["feat_fill"]
+        for _ in range(cfg.lookahead):       # lpcnet_plc.c:219-222
+            featbufB, featfillB = self._feat_push(featbufB, featfillB,
+                                                  predB, blend)
+        fnetB, condB = self._fnet_masked(state["fnet"], state["last_cond"],
+                                         predB, blend)
+        n_blend = counts(blend, FS - off)
+        _, tmp80 = self._synth_samples(state["synth"], condB, FS - off,
+                                       n_active=n_blend)
+        w = _fade_window(self.device)
+        faded = torch.floor(0.5 + w[None, :] * pcm[:, :FS - off]
+                            + (1 - w)[None, :] * tmp80)
+        out_blend = torch.cat([faded, pcm[:, FS - off:]], dim=-1)
+        synthB, _ = self._synth_samples(
+            state["synth"], condB, FS - off, target=faded,
+            preload=torch.full((B,), FS - off, dtype=i32,
+                               device=self.device),
+            n_active=n_blend)
+        # pcm buffer after blend: last 80 input samples (lpcnet_plc.c:242)
+        bufB = torch.cat([pcm[:, FS - off:],
+                          self._zeros(B, self.buf_size + FS - off)], dim=-1)
+
+        # final output (needed now for the shared feature pass)
+        output = torch.where(lost[:, None], out_conceal,
+                             torch.where(blend[:, None], out_blend, pcm))
+
+        # --- shared feature pass: every path extracts the features of its
+        #     output frame through the same streaming state
+        new_enc, featsg, _ = F.compute_features(state["enc"], output,
+                                                mode="single")
+        featg = featsg[:, 0, :NB_FEATURES]
+
+        # --- good non-blend: PLC-net update + FEC discard
+        #     (lpcnet_plc.c:251-262)
+        plcG, predG = plc_model.step(
+            self.plc_params, state["plc_net"],
+            torch.cat([burg36, featg, one], dim=-1), self.plc_cfg)
+        gskip = goodA & (state["fec_skip"] > 0)
+        gread = goodA & ~gskip & (state["fec_read"] < state["fec_fill"])
+        fec_readU = torch.where(gread, state["fec_read"] + 1,
+                                state["fec_read"])
+        fec_skipU = torch.where(gskip, state["fec_skip"] - 1,
+                                state["fec_skip"])
+        fec_keepU = torch.where(
+            goodA, torch.clamp(torch.maximum(
+                state["fec_keep"], fec_readU - cfg.lookahead - 1), min=0),
+            state["fec_keep"])
+
+        # pcm delay buffer for good frames: steady state keeps the last
+        # buf_size samples; catch-up frames append at pcm_fill
+        # (lpcnet_plc.c:244-247 vs :281-286)
+        steady = goodA & (state["skip_analysis"] == 0)
+        steady_buf = torch.cat([state["pcm_buf"][:, FS:self.buf_size], pcm,
+                                self._zeros(B, FS)], dim=-1)
+        pos = torch.arange(self.buf_size + FS, device=self.device)[None, :]
+        offl = state["pcm_fill"][:, None]
+        in_window = (pos >= offl) & (pos < offl + FS)
+        appended = torch.where(
+            in_window,
+            torch.gather(pcm, -1, torch.clamp(pos - offl, 0, FS - 1).long()),
+            state["pcm_buf"])
+        bufU = torch.where(
+            steady[:, None], steady_buf,
+            torch.where((goodA & ~steady)[:, None], appended,
+                        torch.where(blend[:, None], bufB,
+                                    state["pcm_buf"])))
+        fillU = torch.where(
+            steady, state["pcm_fill"],
+            torch.where(goodA, state["pcm_fill"] + FS,
+                        torch.where(blend, off, state["pcm_fill"])))
+
+        # deferred feature push for all good frames (lpcnet_plc.c:266,
+        # :275-277)
+        featbufU, featfillU = self._feat_push(featbufB, featfillB, featg,
+                                              ~lost)
+        skipU = torch.where(~lost & (state["skip_analysis"] > 0),
+                            state["skip_analysis"] - 1,
+                            state["skip_analysis"])
+
+        # =========== merge ===========
+        def merge(c, b, g):
+            """Conceal rows from c, blend rows from b, the others from g."""
+            return _sel(lost, c, _sel(blend, b, g))
+
+        return {**state,
+                "synth": merge(synthC, synthB, state["synth"]),
+                "fnet": merge(fnetC, fnetB, state["fnet"]),
+                "last_cond": merge(condC, condB, state["last_cond"]),
+                "enc": new_enc,
+                "plc_net": merge(plcC, plcB, plcG),
+                "plc_copies": _sel(lost, copiesC, state["plc_copies"]),
+                "feat_buf": _sel(lost, state["feat_buf"], featbufU),
+                "feat_fill": torch.where(lost, 0, featfillU),
+                "pcm_buf": _sel(lost, bufC, bufU),
+                "pcm_fill": torch.where(lost, 0, fillU),
+                "skip_analysis": torch.where(lost, skipC, skipU),
+                "blend": lost,
+                "features": merge(featuresC, predB, predG),
+                "loss_count": torch.where(lost, lcC, 0),
+                "fec_read": torch.where(lost, fecC["fec_read"], fec_readU),
+                "fec_keep": torch.where(lost, fecC["fec_keep"], fec_keepU),
+                "fec_skip": torch.where(lost, fecC["fec_skip"], fec_skipU),
+                }, output
 
 
 class NonCausalPLCEngine(_Engine):

@@ -26,6 +26,11 @@ FLAG_SETS = {
     "target_force_from": (160, True, False, True, False),
     "target_force_from_n_active": (160, True, False, True, True),
     "n_active": (160, False, False, False, True),
+    # the strict engine's three: catch-up over the delay buffer, the 80/80
+    # split conceal and the blend continuation, the forced blend
+    "strict_catchup": (160, True, True, False, True),
+    "strict_free80": (80, False, False, False, True),
+    "strict_blend80": (80, True, True, False, True),
 }
 
 
@@ -91,6 +96,33 @@ def test_kernel_bit_identical_to_plain(card, variant, batch):
     assert torch.equal(pcm_k, pcm_p)
     for k in st_p:
         assert torch.equal(st_k[k], st_p[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["fuse", "opt"])
+@pytest.mark.parametrize("batch", [1, 13])
+def test_fused_kernel_bit_identical_to_plain_and_base(card, variant, batch):
+    """K5 over 2 frames: pcm and every state leaf equal to its plain
+    version's (synthesize_frames_opt) and to the walked-tree kernel's on
+    the same inputs; a ragged last tile (13 streams) included."""
+    voc, conds, state, _ = _setup(card, batch, "base", warm=False)
+    conds = {k: conds[k].contiguous() for k in ("cond_a", "cond_b", "lpc")}
+    before = dict(sample_cuda.launches)
+    st_k, pcm_k = sample_cuda.synthesize_frames(voc.tables, state, conds,
+                                                voc.cfg, variant=variant)
+    torch.cuda.synchronize()
+    after = dict(sample_cuda.launches)
+    assert after.pop(variant) == before.pop(variant) + 2
+    assert after == before
+    st_p, pcm_p = sample_scan.synthesize_frames_opt(
+        voc.tables, state, conds, voc.cfg, pipeline_thr=variant == "opt")
+    st_b, pcm_b = sample_cuda.synthesize_frames(voc.tables, state, conds,
+                                                voc.cfg, variant="base")
+    assert pcm_k.shape == (batch, 320)
+    assert torch.equal(pcm_k, pcm_p) and torch.equal(pcm_k, pcm_b)
+    for k in st_p:
+        assert torch.equal(st_k[k], st_p[k]), k
+        assert torch.equal(st_k[k], st_b[k]), k
 
 
 @pytest.mark.cuda

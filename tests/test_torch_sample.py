@@ -26,6 +26,16 @@ CFG_J = j_lpcnet.LPCNetConfig()
 CFG_T = t_lpcnet.LPCNetConfig()
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The plain loops are thousands of small operations: more intra-op
+    threads only spin and slow the other test workers down."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _to_torch_state(st):
     out = {k: torch.as_tensor(np.array(v)) for k, v in st.items()}
     out["rng"] = torch.as_tensor(np.asarray(st["rng"]).astype(np.int64))
@@ -131,7 +141,7 @@ def test_wrapper_on_cpu_runs_plain_version(setup):
     assert torch.equal(pcm, pcm_f[:, :160])
     with pytest.raises(ValueError):
         sample_cuda.synthesize_frames(tables, st, tconds, CFG_T,
-                                      variant="opt")
+                                      variant="fast")
 
 
 def test_seq_dot_is_a_matmul():
