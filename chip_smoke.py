@@ -6,14 +6,20 @@
 Phases, each fatal on failure:
   1. build   - nvcc builds every CUDA source (lpcnet_tpu_torch/csrc) into
                build/lpcnet_tpu_torch/, one process per source, together.
+  1b. plans  - the card's count of co-resident 16-CTA clusters
+               (cudaOccupancyMaxActiveClusters) and the plan boundary
+               B = 8 x that count: plan L below, plan T above.
   2. synthesis - the user's entry point, Synthesizer(...).synthesize, on the
                golden reference features tiled over the streams, per-stream
                RNG, shipped weights, with each of the four frame variants:
                B=1024 x 50 frames with the default flat sampler and with the
                fused kernel with thresholds drawn ahead (opt), x 4 with the
                walked sampler (base) and the fused kernel (fuse); then
-               the same at B=1. The launch counts are set to 0 just before
-               each run and read just after it. Each run is then held
+               the same at B=1, and flat at the plan boundary x 10
+               frames. The launch counts are set to 0 just before
+               each run and read just after it, the counts by plan too:
+               every launch of the sample loop took its batch's plan (L at
+               B=1 and the boundary, T at B=1024) or the run fails. Each run is then held
                against its plain PyTorch version (kernels/sample_scan.py)
                on the card, on the run's own state and the first 2 frames
                of its own conditions, with the gates of
@@ -53,7 +59,14 @@ Phases, each fatal on failure:
                launch.
   6. times   - CUDA-event time per launch of synth_samples (the PLCEngine
                argument set, 160 samples) and of the teacher_advance kernel
-               at B=1024 and B=1, the host-side parts of teacher_advance,
+               at B=1024 and B=1; K1 (flat) and K3 under each plan that
+               can take the batch at B=1, the boundary and B=1024 (the plan
+               forced through the cluster count launch_plan reads; one
+               time per kernel, plan and batch); the [phases] split of the
+               step (clock stamps on the first CTA) under plan L at B=1
+               and the boundary and plan T at B=1024 and B=1, beside the
+               CUDA-event time of the frame kernel on the same inputs;
+               the host-side parts of teacher_advance,
                the PLCEngine step's parts one by one and the strict step's
                split (its 10 frame_net_step calls, its 8 launches, the
                rest; host clock).
@@ -82,6 +95,9 @@ SPEECH = os.path.join(REPO, "tests", "golden", "speech.s16")
 # cores and HBM3 bandwidth, at the full 700 W power limit.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# the same peak as FP32 lane-instructions per second: under --fmad=false a
+# multiply-add is two instructions, the floor of the bit-parity contract
+PEAK_LANE_INSTR = PEAK_F32_FLOPS / 2
 GATE_EXACT, GATE_CORR, GATE_GRU = 0.95, 0.999, 5e-3
 TOLERANCE = "rng exact, pcm exact fraction >= 0.95, corr >= 0.999"
 # (variant, streams, frames) of each synthesis run: the four frame variants
@@ -102,6 +118,7 @@ VERIFY_STRICT_FRAMES = 3
 STRICT_LAUNCHES = ((("target", "preload", "n_active"), 160, 4),
                    (("n_active",), 80, 3),
                    (("target", "preload", "n_active"), 80, 1))
+BOUNDARY_FRAMES = 10   # frames of the synthesis run at the plan boundary
 GATE_FRAMES = 2     # frames of each synthesis run held against the plain one
 TIME_FRAMES = 10    # frames per timed kernel call
 NA, NB, NL, FS = 384, 16, 256, 160
@@ -177,6 +194,24 @@ def teacher_bound_ms(batch: int, ns: int) -> tuple:
     flops = 2.0 * GRU_MACS * ns * batch
     per_stream = (3 * NA + 3 * NB) * 4 + 3 * ns * 4 + 2 * (NA + NB) * 4
     return _bound(flops, GRU_WEIGHT_FLOATS * 4 + batch * per_stream)
+
+
+def floor_ms(batch: int, ns: int) -> float:
+    """The least time of a sample-loop launch's multiply-adds as separate
+    multiplies and adds (--fmad=false) at the card's peak instruction
+    rate."""
+    macs = (GRU_MACS + DFC_MACS) * ns * batch
+    return 2.0 * macs / PEAK_LANE_INSTR * 1e3
+
+
+def slice_args(args, n: int):
+    """The first n streams of a state, condition or keyword dict."""
+    import torch
+    if isinstance(args, torch.Tensor):
+        return args[:n].contiguous() if args.dim() else args
+    if isinstance(args, dict):
+        return {k: slice_args(v, n) for k, v in args.items()}
+    return args
 
 
 def _bound(flops: float, nbytes: float) -> tuple:
@@ -281,8 +316,24 @@ def main() -> int:
           f"{torch.version.cuda}")
 
     def zero_counts():
-        for k in sample_cuda.launches:
-            sample_cuda.launches[k] = 0
+        for counts in (sample_cuda.launches, sample_cuda.plan_launches):
+            for k in counts:
+                counts[k] = 0
+
+    def expect_plan(tag, B, n):
+        """The launches of the sample loop in the run took the plan of
+        their batch, n of them. Returns the (plan, cluster size) of the
+        run's last launch, or (None, None) without one."""
+        plan = "L" if B <= edge else "T"
+        got = dict(sample_cuda.plan_launches)
+        last = sample_cuda.last_plan if n else (None, None)
+        print(f"[plan] {tag}: launches by plan {got}, the last under plan "
+              f"{last[0]} with clusters of {last[1]} (plan {plan} "
+              f"expected)")
+        if got[plan] != n or sum(got.values()) != n or (n and last[0] != plan):
+            raise RuntimeError(f"{tag}: expected {n} plan-{plan} launches, "
+                               f"got {got}")
+        return last
 
     # ---- 1. build
     t0 = time.perf_counter()
@@ -293,9 +344,17 @@ def main() -> int:
 
     # ---- 2. the synthesis path, each run held against the plain version
     dev = torch.device("cuda")
+    clusters = sample_cuda.max_clusters(dev)
+    edge = sample_cuda.TILE * clusters
+    print(f"[plan] cudaOccupancyMaxActiveClusters of plan L (16-CTA "
+          f"clusters): {clusters}; plan L for B <= {edge}, plan T above "
+          f"[{card}]")
     params = convert.load_lpcnet(device=dev)
-    runs, gates, flat_ref, timing = {}, {}, {}, {}
-    for variant, B, frames in PATHS:
+    # plan_ms: the one CUDA-event time of each (kernel, plan, batch);
+    # plans: the (plan, cluster size) each run's launches took
+    runs, gates, flat_ref, timing, inputs = {}, {}, {}, {}, {}
+    plan_ms, plans = {}, {}
+    for variant, B, frames in PATHS + (("flat", edge, BOUNDARY_FRAMES),):
         v = Synthesizer(params=params, device=dev, variant=variant)
         cfg, tables = v.cfg, v.tables
         feats = tiled_features(B, frames)
@@ -316,6 +375,8 @@ def main() -> int:
         if counts[variant] != frames or sum(counts.values()) != frames:
             return fail(f"{tag}: expected {frames} {variant} launches, got "
                         f"{counts}")
+        plans[(variant, B)] = expect_plan(
+            tag, B, 0 if variant in ("fuse", "opt") else frames)
         if p.shape != (B, frames * FS) or not np.isfinite(p).all() \
                 or np.abs(p).max() > 32767:
             return fail(f"{tag}: pcm is not finite int16-range audio")
@@ -330,6 +391,7 @@ def main() -> int:
         conds = v.conditions(feats)
         c = {k: conds[k][:, :GATE_FRAMES].contiguous()
              for k in ("cond_a", "cond_b", "lpc")}
+        inputs[(variant, B)] = (tables, st0, conds)
         st_k, pcm_k = sample_cuda.synthesize_frames(tables, st0, c, cfg,
                                                     variant=variant)
         torch.cuda.synchronize()
@@ -393,6 +455,9 @@ def main() -> int:
               for k in ("cond_a", "cond_b", "lpc")}
         timing[(variant, B)] = cuda_ms(lambda: sample_cuda.synthesize_frames(
             tables, st0, ck, cfg, variant=variant), 3) / nt
+        if variant in ("flat", "base"):
+            plan_ms[(variant, plans[(variant, B)][0], B)] = timing[
+                (variant, B)]
         bound = sample_bound_ms(B, FS, False)
         print(f"[time] sample_frame_{variant} B={B}: "
               f"{timing[(variant, B)]:.4f} ms per frame (CUDA events), bound "
@@ -428,6 +493,7 @@ def main() -> int:
                 or sum(counts.values()) != frames:
             return fail(f"{tag}: expected {frames} tf_{variant} launches and"
                         f" nothing else, got {counts}")
+        plans[("tf_" + variant, B)] = expect_plan(tag, B, frames)
         if o.shape != (B, frames * FS) or not np.isfinite(o).all() \
                 or np.abs(o).max() > 32767:
             return fail(f"{tag}: output is not finite int16-range audio")
@@ -466,6 +532,7 @@ def main() -> int:
             or sum(counts.values()) != 7 * frames:
         return fail(f"noncausal: expected {4 * frames} tf_flat and "
                     f"{3 * frames} teacher launches, got {counts}")
+    expect_plan("noncausal", B, 4 * frames)
     if o.shape != (B, frames * FS) or not np.isfinite(o).all() \
             or np.abs(o).max() > 32767 or not delayed_ok:
         return fail("noncausal: output is not the expected audio")
@@ -503,6 +570,7 @@ def main() -> int:
     if counts["tf_flat"] != frames or sum(counts.values()) != frames:
         return fail(f"streaming: expected {frames} tf_flat launches and "
                     f"nothing else, got {counts}")
+    expect_plan("streaming", B, frames)
     if not (silent and untouched and o.shape == (B, (frames - look) * FS)
             and np.isfinite(o).all() and 0 < np.abs(o).max() <= 32767):
         return fail("streaming: output is not silence, then audio")
@@ -530,6 +598,7 @@ def main() -> int:
     if counts["tf_flat"] != frames or sum(counts.values()) != frames:
         return fail(f"teacher: expected {frames} tf_flat launches and "
                     f"nothing else, got {counts}")
+    expect_plan("teacher", B, frames)
     if not (forced_ok and np.isfinite(o).all()
             and np.abs(o).max() <= 32767):
         return fail("teacher: forced samples differ from the target")
@@ -570,6 +639,7 @@ def main() -> int:
                 or sum(counts.values()) != 8 * frames:
             return fail(f"{tag}: expected {8 * frames} tf_flat launches (8 "
                         f"per step) and nothing else, got {counts}")
+        expect_plan(tag, B, 8 * frames)
         if o.shape != (B, frames * FS) or not np.isfinite(o).all() \
                 or np.abs(o).max() > 32767:
             return fail(f"{tag}: output is not finite int16-range audio")
@@ -675,6 +745,8 @@ def main() -> int:
             ktime[("tf_" + variant, B)] = cuda_ms(
                 lambda: sample_cuda.synth_samples(tables, state, cond, cfg,
                                                   ns, **kw), 5)
+            plan_ms[("tf_" + variant, plans[("tf_" + variant, B)][0],
+                     B)] = ktime[("tf_" + variant, B)]
             bound = sample_bound_ms(B, ns, True)
             print(f"[time] synth_samples_{variant} (target+force_from, "
                   f"ns={ns}) B={B}: {ktime[('tf_' + variant, B)]:.4f} ms per"
@@ -700,6 +772,54 @@ def main() -> int:
               f"clock: teacher_sequences {t_seq:.3f} ms, kiss99_advance "
               f"{t_rng:.3f} ms, the whole teacher_advance call {t_all:.3f} "
               f"ms [{card}]")
+
+    # K1 (flat, one frame per launch) and K3 (flat, the PLCEngine argument
+    # set, 160 samples) under each plan that can take the batch: B=1, the
+    # boundary, B=1024 (plan L cannot take 1024 streams); what the runs
+    # above timed already is not timed again
+    k3_args = calls[("tf_flat", ("target", "force_from"), FS, big)]
+    for B in (1, edge, big):
+        tables, st0, conds = inputs[("flat", 1 if B == 1 else big)]
+        ck = {k: conds[k][:B, :TIME_FRAMES].contiguous()
+              for k in ("cond_a", "cond_b", "lpc")}
+        s0 = slice_args(st0, B)
+        tables3, state3, cond3, cfg3, ns3, kw3 = k3_args
+        state3, cond3, kw3 = (slice_args(a, B) for a in (state3, cond3, kw3))
+        timed = {
+            "flat": lambda: sample_cuda.synthesize_frames(
+                tables, s0, ck, cfg, variant="flat"),
+            "tf_flat": lambda: sample_cuda.synth_samples(
+                tables3, state3, cond3, cfg3, ns3, **kw3)}
+        for plan in ("L", "T") if B <= edge else ("T",):
+            for name, fn in timed.items():
+                if (name, plan, B) in plan_ms:
+                    continue
+                with sample_cuda._plan_forced(dev, plan):
+                    plan_ms[(name, plan, B)] = cuda_ms(fn, 3) / (
+                        TIME_FRAMES if name == "flat" else 1)
+                    if sample_cuda.last_plan[0] != plan:
+                        return fail(f"times: plan {sample_cuda.last_plan}, "
+                                    f"not {plan}")
+            for name in timed:
+                print(f"[time] {name} plan {plan} B={B}: "
+                      f"{plan_ms[(name, plan, B)]:.4f} ms per 160-sample "
+                      f"launch (CUDA events); floor {floor_ms(B, FS):.6f} "
+                      f"ms (--fmad=false issue), bound "
+                      f"{sample_bound_ms(B, FS, name != 'flat')[0]:.6f} ms "
+                      f"[{card}]")
+    tables, st0, conds = inputs[("base", big)]      # 4 frames
+    ck = {k: conds[k][:edge].contiguous() for k in ("cond_a", "cond_b", "lpc")}
+    s0 = slice_args(st0, edge)
+    with sample_cuda._plan_forced(dev, "L"):
+        plan_ms[("base", "L", edge)] = cuda_ms(
+            lambda: sample_cuda.synthesize_frames(tables, s0, ck, cfg,
+                                                  variant="base"), 3) / 4
+    print(f"[time] base plan L B={edge}: {plan_ms[('base', 'L', edge)]:.4f} "
+          f"ms per launch (CUDA events) [{card}]")
+
+    # the phase split of the step under each plan
+    print_phases(sample_cuda, Synthesizer(params=params, device=dev), card,
+                 (("L", 1), ("L", edge), ("T", big), ("T", 1)))
 
     # the PLCEngine step's parts, one by one, on the last step's inputs
     for B in (big, 1):
@@ -784,6 +904,13 @@ def main() -> int:
         return fail(f"verify: the strict run lacks a kind of step: {sp}")
 
     # ---- the kernels' line
+    def plan_keys(name):
+        """The plan and cluster size that the kernel's B=1024 run took, and
+        its time at the plan boundary under plan L."""
+        plan, cluster = plans[(name, big)]
+        return {"plan": plan, "cluster": cluster,
+                "ms_boundary": plan_ms.get((name, "L", edge))}
+
     kernels = []
     big = PATHS[0][1]
     bound, bound_by = sample_bound_ms(big, FS, False)
@@ -804,7 +931,8 @@ def main() -> int:
             "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
             "batch": big, "launches_b1": runs[(variant, 1)],
             "ms_b1": timing[(variant, 1)], "plain_ms_b1": g1["plain_ms"],
-            "bound_ms_b1": sample_bound_ms(1, FS, False)[0]})
+            "bound_ms_b1": sample_bound_ms(1, FS, False)[0],
+            **plan_keys(variant)})
     bound, bound_by = sample_bound_ms(big, FS, True)
     for variant, line in (("flat", 569), ("base", 529)):
         hs = held["tf_" + variant]
@@ -833,6 +961,8 @@ def main() -> int:
                        launches_b1=plc_runs[("flat", 1)],
                        ms_b1=ktime[("tf_flat", 1)],
                        bound_ms_b1=sample_bound_ms(1, FS, True)[0])
+        row.update(plan_keys("tf_" + variant))
+        row.setdefault("ms_b1", None)
         kernels.append(row)
     bound, bound_by = teacher_bound_ms(big, FS)
     hs = held["teacher"]
@@ -854,6 +984,37 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def print_phases(sample_cuda, v, card, cases) -> None:
+    """[phases] lines: the phase-split instance of the frame kernel on
+    (plan, batch) cases, the plan forced through the cluster count that
+    launch_plan reads; us per step for each phase, by the SM clock of the
+    first CTA's loop. Beside them, us per step of the whole launch of the
+    frame kernel (no stamps) on the same inputs by CUDA events: the stamps'
+    own cost. (The stamping instance reads its stamps back after every
+    launch, so events around it would time the host too.)"""
+    import torch
+    for plan, B in cases:
+        conds = v.conditions(tiled_features(B, 2))
+        st = v.reset(B, per_stream_rng=True)
+        cond = {k: conds[k][:, 1].contiguous()
+                for k in ("cond_a", "cond_b", "lpc")}
+        with sample_cuda._plan_forced(v.device, plan):
+            for _ in range(2):                         # the second counts
+                ph = sample_cuda.phase_split(v.tables, st, cond, v.cfg)
+            plain = cuda_ms(lambda: sample_cuda.synthesize_frame(
+                v.tables, st, cond["cond_a"], cond["cond_b"], cond["lpc"],
+                v.cfg), 3)
+        torch.cuda.synchronize()
+        if ph["plan"] != plan or sample_cuda.last_plan[0] != plan:
+            raise RuntimeError(f"phases: plan {ph['plan']}, not {plan}")
+        print(f"[phases] plan {plan} (cluster {ph['cluster']}) B={B}: "
+              + ", ".join(f"{k} {ph[k]:.3f}"
+                          for k in sample_cuda.PHASES + ("step",))
+              + f" us per step (SM clock {ph['clock_ghz']:.3f} GHz); frame "
+              f"kernel by CUDA events, launch / {FS}: "
+              f"{plain * 1e3 / FS:.3f} [{card}]")
 
 
 if __name__ == "__main__":

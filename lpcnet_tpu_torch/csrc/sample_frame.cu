@@ -1,24 +1,49 @@
 // One free-run 160-sample LPCNet frame for a batch of streams: the
-// sample loop of lpcnet_sample.cuh without teacher forcing or freeze.
+// sample loop of sample_loop.cuh without teacher forcing or freeze.
 //
 // Replaces the TPU kernels of lpcnet_tpu/kernels/sample_pallas.py:
 //   K1 _frame_kernel_flat (flat sampling tree, the default variant) and
 //   K2 _frame_kernel (walked sampling tree), both driven by
 //   synthesize_frame_pallas / synthesize_frames_pallas. One kernel with a
 //   compile-time sampler switch covers both; the two give the same bits.
-// What bounds it on an H100 and what the design does about it is in
-// lpcnet_sample.cuh.
+// What bounds it on an H100, the two launch plans and what each does about
+// it are in sample_loop.cuh.
 
-#include "lpcnet_sample.cuh"
+#include "sample_loop.cuh"
 
 extern "C" {
 
-// Launches one frame on `stream`; returns the cudaError_t of the launch.
-int lpcnet_sample_frame(const LpcnetFrameParams* p, int flat, void* stream) {
+// Launches one frame under `plan` (0: L, 1: T) with `grid` CTAs on
+// `stream`; `clusters` is the count lpcnet_prepare_plans gave. Returns the
+// cudaError_t of the launch.
+int lpcnet_sample_frame(const LpcnetFrameParams* p, int flat, int plan,
+                        int grid, int clusters, void* stream) {
   if (p->batch <= 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(flat ? lpcnet::launch_sample<true, false>(p, s)
-                    : lpcnet::launch_sample<false, false>(p, s));
+  return (int)(flat
+      ? lpcnet::launch_sample<true, false, false>(p, plan, grid, clusters, s)
+      : lpcnet::launch_sample<false, false, false>(p, plan, grid, clusters,
+                                                   s));
+}
+
+// The same frame through the phase-split instance (flat sampler): the
+// clock cycles of each phase on the first CTA into p->prof.
+int lpcnet_sample_phases(const LpcnetFrameParams* p, int plan, int grid,
+                         int clusters, void* stream) {
+  if (p->batch <= 0 || p->prof == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)lpcnet::launch_sample<true, false, true>(
+      p, plan, grid, clusters, static_cast<cudaStream_t>(stream));
+}
+
+// Readies every instance of this library on the current device and lowers
+// *count to the least number of plan-L clusters any of them runs at once.
+int lpcnet_prepare_plans(int* count) {
+  cudaError_t err = lpcnet::prepare_plans<true, false, false>(count);
+  if (err == cudaSuccess)
+    err = lpcnet::prepare_plans<false, false, false>(count);
+  if (err == cudaSuccess)
+    err = lpcnet::prepare_plans<true, false, true>(count);
+  return (int)err;
 }
 
 const char* lpcnet_cuda_error_string(int err) {

@@ -11,8 +11,23 @@ the kernels: 'flat' / 'base' for the free-run frame kernel with either
 sampler, 'fuse' / 'opt' for the fused frame kernel, 'tf_flat' / 'tf_base'
 for synth_samples, 'teacher' for teacher_advance.
 
+The sample loop behind 'flat', 'base', 'tf_flat' and 'tf_base'
+(csrc/sample_loop.cuh) has two launch plans, which launch_plan picks from
+the batch and the card's count of co-resident 16-CTA clusters
+(max_clusters, queried once per device):
+  'L' (B <= 8 x that count): a cluster of 16 CTAs per tile of 8 streams,
+      GRU-A's columns split over the cluster, each CTA's wr_a slice (from
+      plan_operands, built once per tables dict) in shared memory;
+  'T' (larger B): one CTA per 8 streams in clusters of 2, wr_a streamed
+      through a shared-memory ring by multicast bulk copies.
+Both give the same bits. `plan_launches[plan]` counts the launches of the
+sample loop under each plan; `last_plan` is (plan, cluster size) of the
+last one. A plan-L launch beyond the card's cluster count is refused by
+the kernel's entry point and raises; nothing retries with the other plan.
+
 The state dict layout is sample_scan's. The returned state is new memory.
 """
+import contextlib
 import ctypes
 from typing import Any, Dict, Optional, Tuple
 
@@ -35,6 +50,43 @@ NA, NB, NL = GRU_A_SIZE, GRU_B_SIZE, DUAL_FC_OUT
 launches = {"flat": 0, "base": 0, "fuse": 0, "opt": 0, "tf_flat": 0,
             "tf_base": 0, "teacher": 0}
 
+# the launch plans of the sample loop (csrc/sample_loop.cuh)
+TILE = 8                    # streams per tile
+CLUSTER_L, CLUSTER_T = 16, 2
+UNITS_L = NA // CLUSTER_L   # GRU-A units per CTA of plan L
+PLANS = {"L": 0, "T": 1}    # the entry points' plan codes
+plan_launches = {"L": 0, "T": 0}
+last_plan: Optional[Tuple[str, int]] = None
+# the card's count of co-resident plan-L clusters per device index
+# (max_clusters); _plan_forced overrides an entry
+_max_clusters: Dict[int, int] = {}
+
+
+def launch_plan(batch: int, max_clusters: int) -> Tuple[str, int, int, int]:
+    """(plan, cluster size, streams per tile, grid in CTAs) of a launch of
+    the sample loop over `batch` streams on a card that runs
+    `max_clusters` 16-CTA clusters at once: plan L while every tile gets
+    its own co-resident cluster, else plan T (the grid rounded up to whole
+    clusters of 2; a CTA past the batch only shares wr_a)."""
+    if batch <= 0:
+        raise ValueError(f"batch must be positive, not {batch}")
+    tiles = -(-batch // TILE)
+    if tiles <= max_clusters:
+        return "L", CLUSTER_L, TILE, tiles * CLUSTER_L
+    return "T", CLUSTER_T, TILE, -(-tiles // CLUSTER_T) * CLUSTER_T
+
+
+def plan_operands(tables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """wr_a repacked for plan L, built once per tables dict and kept in it
+    under "plan_l": wr_a_l (16, 72, 384), where [r, g * 24 + u, k] =
+    wr_a[k, g * 384 + 24 r + u], so each CTA's slice is one block."""
+    if "plan_l" not in tables:
+        wr_a = tables["wr_a"]
+        tables["plan_l"] = {"wr_a_l": wr_a.reshape(
+            NA, 3, CLUSTER_L, UNITS_L).permute(2, 1, 3, 0).reshape(
+            CLUSTER_L, 3 * UNITS_L, NA).contiguous()}
+    return tables["plan_l"]
+
 _WEIGHTS = ("tbl_sig", "tbl_pred", "tbl_exc", "wr_a", "br_a", "wi_b", "wr_b",
             "br_b")
 _STATE_PTRS = ("gru_a_in", "gru_b_in", "sig_in", "exc_in", "deemph_in",
@@ -54,7 +106,8 @@ class _Params(ctypes.Structure):
            ("tgt_stride", ctypes.c_longlong), ("preload", ctypes.c_void_p),
            ("force_from", ctypes.c_void_p), ("n_active", ctypes.c_void_p),
            ("batch", ctypes.c_int), ("nsamples", ctypes.c_int),
-           ("preemph", ctypes.c_float)])
+           ("preemph", ctypes.c_float), ("wr_a_l", ctypes.c_void_p),
+           ("prof", ctypes.c_void_p)])
 
 
 class _OptParams(ctypes.Structure):
@@ -79,15 +132,29 @@ class _TeacherParams(ctypes.Structure):
         + [("batch", ctypes.c_int), ("nsamples", ctypes.c_int)])
 
 
-def _lib(name: str, fn: str, params) -> ctypes.CDLL:
-    """The built library of csrc/<name>.cu with its entry point typed."""
+_P, _I, _V = ctypes.POINTER, ctypes.c_int, ctypes.c_void_p
+# the argument types of every entry point
+_ENTRIES = {
+    "sample_frame": {"lpcnet_sample_frame": [_P(_Params), _I, _I, _I, _I,
+                                             _V],
+                     "lpcnet_sample_phases": [_P(_Params), _I, _I, _I, _V],
+                     "lpcnet_prepare_plans": [_P(_I)]},
+    "synth_samples": {"lpcnet_synth_samples": [_P(_Params), _I, _I, _I, _I,
+                                               _V],
+                      "lpcnet_prepare_plans": [_P(_I)]},
+    "sample_frame_opt": {"lpcnet_sample_frame_opt": [_P(_OptParams), _I,
+                                                     _V]},
+    "teacher_advance": {"lpcnet_teacher_advance": [_P(_TeacherParams), _V]},
+}
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    """The built library of csrc/<name>.cu with its entry points typed."""
     lib = _build.load(name)
     if not getattr(lib, "_lpcnet_typed", False):
-        entry = getattr(lib, fn)
-        entry.argtypes = [ctypes.POINTER(params)] + (
-            [ctypes.c_void_p] if params is _TeacherParams
-            else [ctypes.c_int, ctypes.c_void_p])
-        entry.restype = ctypes.c_int
+        for fn, argtypes in _ENTRIES[name].items():
+            entry = getattr(lib, fn)
+            entry.argtypes, entry.restype = argtypes, ctypes.c_int
         lib.lpcnet_cuda_error_string.argtypes = [ctypes.c_int]
         lib.lpcnet_cuda_error_string.restype = ctypes.c_char_p
         lib._lpcnet_typed = True
@@ -101,6 +168,54 @@ def _raise_on(err: int, lib: ctypes.CDLL, what: str) -> None:
 
 
 _logit_tbls: Dict[torch.device, torch.Tensor] = {}
+
+
+def _index(device: torch.device) -> int:
+    return device.index if device.index is not None \
+        else torch.cuda.current_device()
+
+
+def max_clusters(device: torch.device) -> int:
+    """How many 16-CTA clusters of plan L the card runs at once: the least
+    cudaOccupancyMaxActiveClusters over every instance of the sample loop
+    in both libraries. The first call on a device readies those kernels
+    there (lpcnet_prepare_plans), which every launch of the sample loop
+    needs. Raises if a query fails or gives 0."""
+    index = _index(device)
+    if index not in _max_clusters:
+        n = ctypes.c_int(2 ** 31 - 1)
+        with torch.cuda.device(index):
+            for name in ("sample_frame", "synth_samples"):
+                lib = _lib(name)
+                _raise_on(lib.lpcnet_prepare_plans(ctypes.byref(n)), lib,
+                          "cluster occupancy query")
+        if n.value <= 0:
+            raise RuntimeError("the card runs no 16-CTA cluster of plan L")
+        _max_clusters[index] = n.value
+    return _max_clusters[index]
+
+
+@contextlib.contextmanager
+def _plan_forced(device: torch.device, plan: str):
+    """For the card tests and chip_smoke.py: launches of the sample loop
+    inside take `plan`, through launch_plan's input, the cluster count
+    (the card's own for L, 0 for T)."""
+    index, real = _index(device), max_clusters(device)
+    _max_clusters[index] = real if plan == "L" else 0
+    try:
+        yield
+    finally:
+        _max_clusters[index] = real
+
+
+def _plan(batch: int, device: torch.device) -> Tuple[str, int, int]:
+    """(plan, grid, cluster count) of launch_plan for this batch on this
+    card, recorded as the last."""
+    global last_plan
+    clusters = max_clusters(device)
+    plan, cluster, _, grid = launch_plan(batch, clusters)
+    last_plan = (plan, cluster)
+    return plan, grid, clusters
 
 
 def _logit_tbl(device: torch.device) -> torch.Tensor:
@@ -172,8 +287,15 @@ def _state_ptrs(state, new) -> Dict[str, int]:
 def _sample_params(tables, state, new, pcm, batch, nsamples, cfg) -> _Params:
     """The argument block of the sample loop but for its conditions."""
     dfc = tables["dual_fc"]
+    wr_a_l = plan_operands(tables)["wr_a_l"]
+    _check("wr_a_l", wr_a_l, (CLUSTER_L, 3 * UNITS_L, NA), torch.float32,
+           pcm.device)
+    for name, t in (("wr_a", tables["wr_a"]), ("wr_a_l", wr_a_l)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     return _Params(
         **{k: tables[k].data_ptr() for k in _WEIGHTS},
+        wr_a_l=wr_a_l.data_ptr(),
         dfc_w=dfc["w"].data_ptr(), dfc_b=dfc["b"].data_ptr(),
         dfc_f=dfc["factor"].data_ptr(),
         logit_tbl=_logit_tbl(pcm.device).data_ptr(),
@@ -247,12 +369,15 @@ def synthesize_frames(tables: Dict[str, Any], state: Dict[str, torch.Tensor],
     new = {k: torch.empty_like(v) for k, v in state.items()}
     pcm = torch.empty((B, T * FRAME_SIZE), dtype=f32, device=device)
     if fused:
-        lib = _lib("sample_frame_opt", "lpcnet_sample_frame_opt", _OptParams)
-        launch, switch = lib.lpcnet_sample_frame_opt, int(variant == "opt")
+        lib = _lib("sample_frame_opt")
+        args = (int(variant == "opt"),)
+        launch, plan = lib.lpcnet_sample_frame_opt, None
         p = _opt_params(tables, state, new, pcm, B, cfg)
     else:
-        lib = _lib("sample_frame", "lpcnet_sample_frame", _Params)
-        launch, switch = lib.lpcnet_sample_frame, int(variant == "flat")
+        lib = _lib("sample_frame")
+        plan, grid, clusters = _plan(B, device)
+        args = (int(variant == "flat"), PLANS[plan], grid, clusters)
+        launch = lib.lpcnet_sample_frame
         p = _sample_params(tables, state, new, pcm, B, FRAME_SIZE, cfg)
     p.ca_stride, p.cb_stride = T * 3 * NA, T * 3 * NB
     p.lpc_stride = T * LPC_ORDER
@@ -263,9 +388,11 @@ def synthesize_frames(tables: Dict[str, Any], state: Dict[str, torch.Tensor],
             p.cond_b = conds["cond_b"].data_ptr() + 4 * t * 3 * NB
             p.lpc = conds["lpc"].data_ptr() + 4 * t * LPC_ORDER
             p.pcm = pcm.data_ptr() + 4 * t * FRAME_SIZE
-            _raise_on(launch(ctypes.byref(p), switch, stream), lib,
+            _raise_on(launch(ctypes.byref(p), *args, stream), lib,
                       f"sample_frame ({variant})")
             launches[variant] += 1
+            if plan is not None:
+                plan_launches[plan] += 1
             # later frames update the new state in place
             p.gru_a_in, p.gru_b_in = p.gru_a_out, p.gru_b_out
             p.sig_in, p.exc_in = p.sig_out, p.exc_out
@@ -282,6 +409,48 @@ def synthesize_frame(tables: Dict[str, Any], state: Dict[str, torch.Tensor],
              "cond_b": cond_b[:, None].contiguous(),
              "lpc": lpc[:, None].contiguous()}
     return synthesize_frames(tables, state, conds, cfg, variant=variant)
+
+
+PHASES = ("A", "gru_a_loop", "gru_a_epilogue", "exchange", "gru_b",
+          "dual_fc", "sampler", "H")
+
+
+def phase_split(tables: Dict[str, Any], state: Dict[str, torch.Tensor],
+                cond: Dict[str, torch.Tensor], cfg) -> Dict[str, Any]:
+    """One free-run frame (flat sampler) through the instance of the frame
+    kernel that stamps the SM clock around each phase of the step on the
+    first CTA, under the plan launch_plan picks: us per step for each of
+    PHASES, the whole step, the SM clock, the plan. Counted in neither
+    `launches` nor `plan_launches`: a measurement, never the main path."""
+    device = cond["cond_a"].device
+    B = cond["cond_a"].shape[0]
+    _check_cfg(cfg)
+    _check_cond(cond, B, device)
+    _check_weights(tables, device)
+    _check_state(state, B, device)
+    lib = _lib("sample_frame")
+    clusters = max_clusters(device)
+    plan, cluster, _, grid = launch_plan(B, clusters)
+    new = {k: torch.empty_like(v) for k, v in state.items()}
+    pcm = torch.empty((B, FRAME_SIZE), dtype=torch.float32, device=device)
+    p = _sample_params(tables, state, new, pcm, B, FRAME_SIZE, cfg)
+    p.cond_a, p.ca_stride = cond["cond_a"].data_ptr(), 3 * NA
+    p.cond_b, p.cb_stride = cond["cond_b"].data_ptr(), 3 * NB
+    p.lpc, p.lpc_stride = cond["lpc"].data_ptr(), LPC_ORDER
+    prof = torch.zeros(len(PHASES) + 3, dtype=torch.int64, device=device)
+    p.prof = prof.data_ptr()
+    with torch.cuda.device(device):
+        _raise_on(lib.lpcnet_sample_phases(
+            ctypes.byref(p), PLANS[plan], grid, clusters,
+            torch.cuda.current_stream(device).cuda_stream), lib,
+            "sample_frame (phases)")
+    c = prof.cpu().tolist()
+    cycles, ns, steps = c[len(PHASES):]
+    out: Dict[str, Any] = {k: c[q] * ns / cycles / 1e3 / steps
+                           for q, k in enumerate(PHASES)}
+    out.update(step=ns / 1e3 / steps, clock_ghz=cycles / ns, plan=plan,
+               cluster=cluster)
+    return out
 
 
 def _check_cond(cond, batch: int, device):
@@ -339,7 +508,8 @@ def synth_samples(tables: Dict[str, Any], state: Dict[str, torch.Tensor],
         if t is not None:
             _check(name, t, (B,), i32, device)
 
-    lib = _lib("synth_samples", "lpcnet_synth_samples", _Params)
+    lib = _lib("synth_samples")
+    plan, grid, clusters = _plan(B, device)
     new = {k: torch.empty_like(v) for k, v in state.items()}
     pcm = torch.empty((B, nsamples), dtype=torch.float32, device=device)
     p = _sample_params(tables, state, new, pcm, B, nsamples, cfg)
@@ -353,10 +523,11 @@ def synth_samples(tables: Dict[str, Any], state: Dict[str, torch.Tensor],
         p.n_active = n_active.data_ptr()
     with torch.cuda.device(device):
         _raise_on(lib.lpcnet_synth_samples(
-            ctypes.byref(p), int(flat),
+            ctypes.byref(p), int(flat), PLANS[plan], grid, clusters,
             torch.cuda.current_stream(device).cuda_stream),
             lib, "synth_samples")
     launches["tf_" + variant] += 1
+    plan_launches[plan] += 1
     return new, pcm
 
 
@@ -389,7 +560,7 @@ def teacher_gru_advance(tables: Dict[str, Any], gru_a: torch.Tensor,
     for name, t in zip(("lsu", "pu", "exc_prev"), idx):
         _check(name, t, (B, ns), torch.int32, device)
 
-    lib = _lib("teacher_advance", "lpcnet_teacher_advance", _TeacherParams)
+    lib = _lib("teacher_advance")
     new_a, new_b = torch.empty_like(gru_a), torch.empty_like(gru_b)
     p = _TeacherParams(
         cond_a=cond["cond_a"].data_ptr(), cond_b=cond["cond_b"].data_ptr(),

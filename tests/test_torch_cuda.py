@@ -5,6 +5,10 @@ imports neither jax nor lpcnet_tpu, so it also runs on a machine with the
 card and without JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+The sample loop's two launch plans are forced through launch_plan's input,
+the card's cluster count (sample_cuda._plan_forced): the card's own count
+gives plan L up to its boundary (8 streams per cluster), 0 gives plan T.
 """
 import os
 
@@ -34,6 +38,27 @@ FLAG_SETS = {
 }
 
 
+# (plan, batch) of the sample-loop cases; "boundary" is 8 x the card's
+# cluster count, the largest batch of plan L
+PLAN_CASES = [("L", 1), ("L", 7), ("L", 9), ("L", "boundary"), ("T", 1),
+              ("T", 7), ("T", 9), ("T", "boundary"), ("T", "boundary+1"),
+              ("T", 130)]
+PLAN_IDS = [f"{p}-B{b}" for p, b in PLAN_CASES]
+_plain = {}   # plain results, shared by the cases of both plans
+
+
+def _batch(card, batch):
+    """A batch of PLAN_CASES as a number of streams."""
+    edge = sample_cuda.TILE * sample_cuda.max_clusters(card)
+    return {"boundary": edge, "boundary+1": edge + 1}.get(batch, batch)
+
+
+def _plain_once(key, fn):
+    if key not in _plain:
+        _plain[key] = fn()
+    return _plain[key]
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -45,7 +70,8 @@ def _setup(card, batch, variant="flat", warm=True):
     """Shipped weights, one frame of conditions per stream, and a state
     warmed by a frame of free-run synthesis so that no leaf is trivial."""
     voc = Synthesizer(device=card, variant=variant)
-    f = np.stack([FEATS[5 * i:5 * i + 2] for i in range(batch)])
+    offs = (5 * np.arange(batch)) % (len(FEATS) - 2)
+    f = np.stack([FEATS[o:o + 2] for o in offs])
     conds = voc.conditions(f)
     state = voc.reset(batch, per_stream_rng=True)
     if warm:
@@ -58,8 +84,9 @@ def _setup(card, batch, variant="flat", warm=True):
     return voc, conds, state, cond
 
 
-def _flag_args(name, batch, device, seed=3):
-    ns, has_target, has_pre, has_ff, has_act = FLAG_SETS[name]
+def _flag_args(name, batch, device, seed=3, ns=None):
+    ns0, has_target, has_pre, has_ff, has_act = FLAG_SETS[name]
+    ns = ns0 if ns is None else ns
     rs = np.random.RandomState(seed)
     i32 = dict(dtype=torch.int32, device=device)
     kw = {}
@@ -79,20 +106,26 @@ def _flag_args(name, batch, device, seed=3):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["flat", "base"])
-@pytest.mark.parametrize("batch", [1, 13])
-def test_kernel_bit_identical_to_plain(card, variant, batch):
+@pytest.mark.parametrize("plan,batch", PLAN_CASES, ids=PLAN_IDS)
+def test_kernel_bit_identical_to_plain(card, variant, plan, batch):
     """Same state, conditions and shipped weights: the kernel sums in the
-    plain version's order, so pcm and the whole state agree exactly; a
-    ragged last tile (13 streams) included."""
+    plain version's order, so pcm and the whole state agree exactly under
+    either plan; ragged tiles (7, 9, 130 streams), a last cluster of plan T
+    only partly filled, and plan L's largest batch included."""
+    batch = _batch(card, batch)
     voc, conds, state, _ = _setup(card, batch, variant, warm=False)
     before = sample_cuda.launches[variant]
-    st_k, pcm_k = sample_cuda.synthesize_frames(voc.tables, state, conds,
-                                                voc.cfg, variant=variant)
+    with sample_cuda._plan_forced(card, plan):
+        st_k, pcm_k = sample_cuda.synthesize_frames(
+            voc.tables, state, conds, voc.cfg, variant=variant)
     torch.cuda.synchronize()
     assert sample_cuda.launches[variant] == before + 2
-    st_p, pcm_p = sample_scan.synthesize_frames(voc.tables, state, conds,
-                                                voc.cfg,
-                                                flat=variant == "flat")
+    assert sample_cuda.last_plan[0] == plan
+    st_p, pcm_p = _plain_once(
+        ("frames", variant, batch),
+        lambda: sample_scan.synthesize_frames(voc.tables, state, conds,
+                                              voc.cfg,
+                                              flat=variant == "flat"))
     assert torch.equal(pcm_k, pcm_p)
     for k in st_p:
         assert torch.equal(st_k[k], st_p[k]), k
@@ -127,22 +160,30 @@ def test_fused_kernel_bit_identical_to_plain_and_base(card, variant, batch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["flat", "base"])
-@pytest.mark.parametrize("batch", [1, 13])
+@pytest.mark.parametrize("plan,batch", PLAN_CASES, ids=PLAN_IDS)
+@pytest.mark.parametrize("ns", [80, 160])
 @pytest.mark.parametrize("flags", list(FLAG_SETS))
-def test_synth_samples_bit_identical_to_plain(card, flags, batch, variant):
-    """K3 on every argument set the engines pass: one launch, and pcm and
-    every state leaf equal to the plain loop's."""
+def test_synth_samples_bit_identical_to_plain(card, flags, ns, plan, batch,
+                                              variant):
+    """K3 on every argument set the engines pass, at 80 and 160 samples,
+    under either plan: one launch, and pcm and every state leaf equal to
+    the plain loop's."""
+    batch = _batch(card, batch)
     voc, _, state, cond = _setup(card, batch, variant)
-    ns, kw = _flag_args(flags, batch, card)
+    ns, kw = _flag_args(flags, batch, card, ns=ns)
     before = dict(sample_cuda.launches)
-    st_k, pcm_k = sample_cuda.synth_samples(voc.tables, state, cond, voc.cfg,
-                                            ns, variant=variant, **kw)
+    with sample_cuda._plan_forced(card, plan):
+        st_k, pcm_k = sample_cuda.synth_samples(
+            voc.tables, state, cond, voc.cfg, ns, variant=variant, **kw)
     torch.cuda.synchronize()
+    assert sample_cuda.last_plan[0] == plan
     after = dict(sample_cuda.launches)
     assert after.pop("tf_" + variant) == before.pop("tf_" + variant) + 1
     assert after == before
-    st_p, pcm_p = sample_scan.synth_samples(voc.tables, state, cond, voc.cfg,
-                                            ns, flat=variant == "flat", **kw)
+    st_p, pcm_p = _plain_once(
+        ("synth", variant, flags, ns, batch),
+        lambda: sample_scan.synth_samples(voc.tables, state, cond, voc.cfg,
+                                          ns, flat=variant == "flat", **kw))
     assert pcm_k.shape == (batch, ns)
     assert torch.equal(pcm_k, pcm_p)
     for k in st_p:
@@ -170,6 +211,49 @@ def test_teacher_advance_bit_identical_to_plain_and_forced_k3(card, batch):
     for k in st_p:
         assert torch.equal(st_k[k], st_p[k]), k
         assert torch.equal(st_k[k], st_3[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", ["L", "T"])
+def test_teacher_advance_equals_forced_k3_under_each_plan(card, plan):
+    """K4 leaves the bits of a fully forced K3 launch under either plan."""
+    voc, _, state, cond = _setup(card, 9)
+    ns, kw = _flag_args("target", 9, card)
+    st_4, _ = sample_cuda.teacher_advance(voc.tables, state, cond, voc.cfg,
+                                          kw["target"])
+    with sample_cuda._plan_forced(card, plan):
+        st_3, pcm_3 = sample_cuda.synth_samples(voc.tables, state, cond,
+                                                voc.cfg, ns,
+                                                target=kw["target"])
+    torch.cuda.synchronize()
+    assert sample_cuda.last_plan[0] == plan
+    assert torch.equal(pcm_3, kw["target"])
+    for k in st_3:
+        assert torch.equal(st_4[k], st_3[k]), k
+
+
+@pytest.mark.cuda
+def test_plan_l_over_the_cluster_count_raises(card, monkeypatch):
+    """A plan-L launch with more tiles than the card runs clusters at once
+    (here from a launch_plan that ignores the count) is refused by the
+    kernel's entry point, not run in waves, and nothing retries it under
+    plan T."""
+    real = sample_cuda.max_clusters(card)
+    batch = 8 * real + 1
+    voc, _, state, cond = _setup(card, batch, warm=False)
+    before = dict(sample_cuda.plan_launches)
+    tiles = -(-batch // sample_cuda.TILE)
+    monkeypatch.setattr(sample_cuda, "launch_plan", lambda b, n: (
+        "L", sample_cuda.CLUSTER_L, sample_cuda.TILE,
+        tiles * sample_cuda.CLUSTER_L))
+    for call in (lambda: sample_cuda.synth_samples(voc.tables, state, cond,
+                                                   voc.cfg, 80),
+                 lambda: sample_cuda.synthesize_frame(
+                     voc.tables, state, cond["cond_a"], cond["cond_b"],
+                     cond["lpc"], voc.cfg)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            call()
+    assert sample_cuda.plan_launches == before
 
 
 @pytest.mark.cuda
