@@ -18,8 +18,9 @@ Phases, each fatal on failure:
                the same at B=1, and flat at the plan boundary x 10
                frames. The launch counts are set to 0 just before
                each run and read just after it, the counts by plan too:
-               every launch of the sample loop took its batch's plan (L at
-               B=1 and the boundary, T at B=1024) or the run fails. Each run is then held
+               every launch (K1/K2 and K5 alike) took its batch's plan (L
+               at B=1 and the boundary, T at B=1024) or the run fails.
+               Each run is then held
                against its plain PyTorch version (kernels/sample_scan.py)
                on the card, on the run's own state and the first 2 frames
                of its own conditions, with the gates of
@@ -35,8 +36,10 @@ Phases, each fatal on failure:
                x 50 (flat sampler), B=1024 x 10 (base). Exactly one
                synth_samples launch per 10-ms step and no other kernel;
                output finite, int16 range, good rows equal to their input.
-  4. noncausal - NonCausalPLCEngine(...).run, B=1024 x 10 frames: 4
-               synth_samples and 3 teacher_advance launches per step.
+  4. noncausal - NonCausalPLCEngine(...).run, B=1024 x 10 frames (plan
+               T) and B=1 x 3 (plan L): 4 synth_samples and 3
+               teacher_advance launches per step, each teacher_advance call
+               one launch.
   4b. modes  - Synthesizer.synthesize_streaming, B=1024 x 10 frames (one
                free-run synth_samples launch per frame; the first
                `lookahead` frames are silence and leave the sample state
@@ -54,22 +57,24 @@ Phases, each fatal on failure:
                that phases 3 to 4c launched, the arguments of its last
                launch in the run go through the kernel and through its
                plain version on the card: the gates of phase 2 for
-               synth_samples, GRU states to 5e-3 for teacher_advance;
-               teacher_advance is held against a fully forced synth_samples
-               launch.
+               synth_samples; for teacher_advance every state field
+               exact, against its plain version and against a fully
+               forced synth_samples launch.
   6. times   - CUDA-event time per launch of synth_samples (the PLCEngine
-               argument set, 160 samples) and of the teacher_advance kernel
-               at B=1024 and B=1; K1 (flat) and K3 under each plan that
-               can take the batch at B=1, the boundary and B=1024 (the plan
-               forced through the cluster count launch_plan reads; one
-               time per kernel, plan and batch); the [phases] split of the
-               step (clock stamps on the first CTA) under plan L at B=1
-               and the boundary and plan T at B=1024 and B=1, beside the
-               CUDA-event time of the frame kernel on the same inputs;
-               the host-side parts of teacher_advance,
-               the PLCEngine step's parts one by one and the strict step's
-               split (its 10 frame_net_step calls, its 8 launches, the
-               rest; host clock).
+               argument set, 160 samples) and of teacher_advance at B=1024
+               and B=1, with the whole teacher_advance call by the host
+               clock beside it; K1 (flat), K5 (fuse, opt), K3 and K4 under
+               each plan that can take the batch at B=1, the boundary and
+               B=1024 (the plan forced through the cluster count
+               launch_plan reads; one time per kernel, plan and batch); the
+               [phases] split of the step (clock stamps on the first CTA)
+               of the frame kernel under plan L at B=1 and the boundary
+               and plan T at B=1024 and B=1, and of K4 under plan L at B=1
+               and plan T at B=1024, beside the CUDA-event time of the
+               same kernel on the same inputs; the PLCEngine step's parts
+               one by one and the strict step's split (its 10
+               frame_net_step calls, its 8 launches, the rest; host
+               clock).
   7. verify  - lpcnet_tpu_torch.verify.verify_on_device(): every kernel
                against its oracle at B=1024 with the JAX package's gate
                names and thresholds, the fused variants against base, and
@@ -98,7 +103,7 @@ PEAK_BYTES_PER_S = 3.35e12
 # the same peak as FP32 lane-instructions per second: under --fmad=false a
 # multiply-add is two instructions, the floor of the bit-parity contract
 PEAK_LANE_INSTR = PEAK_F32_FLOPS / 2
-GATE_EXACT, GATE_CORR, GATE_GRU = 0.95, 0.999, 5e-3
+GATE_EXACT, GATE_CORR = 0.95, 0.999
 TOLERANCE = "rng exact, pcm exact fraction >= 0.95, corr >= 0.999"
 # (variant, streams, frames) of each synthesis run: the four frame variants
 # at the server width and for one stream (flat before the others: they are
@@ -108,7 +113,7 @@ PATHS = (("flat", 1024, 50), ("base", 1024, 4), ("opt", 1024, 50),
          ("fuse", 1, 4))
 # (variant, streams, frames) of each PLCEngine run
 PLC_PATHS = (("flat", 1024, 50), ("flat", 1, 50), ("base", 1024, 10))
-NONCAUSAL_PATH = (1024, 10)
+NONCAUSAL_PATHS = ((1024, 10), (1, 3))    # (streams, frames)
 STRICT_PATHS = ((1024, 10), (1, 10))        # (streams, frames)
 STREAMING_PATH = (1024, 10)
 TEACHER_PATH = (1024, 4)
@@ -190,17 +195,17 @@ def sample_bound_ms(batch: int, ns: int, forced: bool) -> tuple:
 
 def teacher_bound_ms(batch: int, ns: int) -> tuple:
     """The same for the teacher_advance kernel: no dual-FC, and its inputs
-    are the conditions, three index rows and the two GRU states."""
+    are the conditions, the target and the state, its output the state."""
     flops = 2.0 * GRU_MACS * ns * batch
-    per_stream = (3 * NA + 3 * NB) * 4 + 3 * ns * 4 + 2 * (NA + NB) * 4
+    per_stream = (3 * NA + 3 * NB + 16) * 4 + ns * 4 + 2 * STATE_FLOATS * 4
     return _bound(flops, GRU_WEIGHT_FLOATS * 4 + batch * per_stream)
 
 
-def floor_ms(batch: int, ns: int) -> float:
+def floor_ms(batch: int, ns: int, dual_fc: bool = True) -> float:
     """The least time of a sample-loop launch's multiply-adds as separate
     multiplies and adds (--fmad=false) at the card's peak instruction
-    rate."""
-    macs = (GRU_MACS + DFC_MACS) * ns * batch
+    rate; dual_fc False: K4, which has none."""
+    macs = (GRU_MACS + DFC_MACS * dual_fc) * ns * batch
     return 2.0 * macs / PEAK_LANE_INSTR * 1e3
 
 
@@ -259,25 +264,24 @@ def compare_pcm(pcm_k, pcm_p) -> dict:
 
 
 class Recorder:
-    """Stands in for sample_cuda.synth_samples and teacher_gru_advance while
-    an engine runs: passes every call through and keeps the arguments of
-    the last call of each distinct (kernel, argument set, nsamples,
-    batch)."""
+    """Stands in for sample_cuda.synth_samples and teacher_advance while an
+    engine runs: passes every call through and keeps the arguments of the
+    last call of each distinct (kernel, argument set, nsamples, batch)."""
 
     def __init__(self, sample_cuda):
         self.mod = sample_cuda
         self.calls = {}
         self._synth = sample_cuda.synth_samples
-        self._teacher = sample_cuda.teacher_gru_advance
+        self._teacher = sample_cuda.teacher_advance
 
     def __enter__(self):
         self.mod.synth_samples = self.synth_samples
-        self.mod.teacher_gru_advance = self.teacher_gru_advance
+        self.mod.teacher_advance = self.teacher_advance
         return self
 
     def __exit__(self, *exc):
         self.mod.synth_samples = self._synth
-        self.mod.teacher_gru_advance = self._teacher
+        self.mod.teacher_advance = self._teacher
 
     def synth_samples(self, tables, state, cond, cfg, nsamples, **kw):
         given = tuple(k for k in ("target", "preload", "force_from",
@@ -287,10 +291,10 @@ class Recorder:
         self.calls[key] = (tables, state, cond, cfg, nsamples, kw)
         return self._synth(tables, state, cond, cfg, nsamples, **kw)
 
-    def teacher_gru_advance(self, tables, gru_a, gru_b, cond, seqs, cfg):
-        key = ("teacher", (), seqs["lsu"].shape[1], cond["cond_a"].shape[0])
-        self.calls[key] = (tables, gru_a, gru_b, cond, seqs, cfg)
-        return self._teacher(tables, gru_a, gru_b, cond, seqs, cfg)
+    def teacher_advance(self, tables, state, cond, cfg, target):
+        key = ("teacher", (), target.shape[1], cond["cond_a"].shape[0])
+        self.calls[key] = (tables, state, cond, cfg, target)
+        return self._teacher(tables, state, cond, cfg, target)
 
 
 def main() -> int:
@@ -305,7 +309,7 @@ def main() -> int:
     from lpcnet_tpu_torch.kernels import _build, sample_cuda, sample_scan
     from lpcnet_tpu_torch.models import lpcnet as lpcnet_model
     from lpcnet_tpu_torch.models import plc as plc_model
-    from lpcnet_tpu_torch.ops import burg, kiss99
+    from lpcnet_tpu_torch.ops import burg
     from lpcnet_tpu_torch.vocoder import Synthesizer
 
     # float32 means float32: no TF32 in matmuls or convolutions
@@ -375,8 +379,7 @@ def main() -> int:
         if counts[variant] != frames or sum(counts.values()) != frames:
             return fail(f"{tag}: expected {frames} {variant} launches, got "
                         f"{counts}")
-        plans[(variant, B)] = expect_plan(
-            tag, B, 0 if variant in ("fuse", "opt") else frames)
+        plans[(variant, B)] = expect_plan(tag, B, frames)
         if p.shape != (B, frames * FS) or not np.isfinite(p).all() \
                 or np.abs(p).max() > 32767:
             return fail(f"{tag}: pcm is not finite int16-range audio")
@@ -455,9 +458,7 @@ def main() -> int:
               for k in ("cond_a", "cond_b", "lpc")}
         timing[(variant, B)] = cuda_ms(lambda: sample_cuda.synthesize_frames(
             tables, st0, ck, cfg, variant=variant), 3) / nt
-        if variant in ("flat", "base"):
-            plan_ms[(variant, plans[(variant, B)][0], B)] = timing[
-                (variant, B)]
+        plan_ms[(variant, plans[(variant, B)][0], B)] = timing[(variant, B)]
         bound = sample_bound_ms(B, FS, False)
         print(f"[time] sample_frame_{variant} B={B}: "
               f"{timing[(variant, B)]:.4f} ms per frame (CUDA events), bound "
@@ -508,37 +509,46 @@ def main() -> int:
               f"{B * frames * 0.01 / wall:.1f}x [{card}]")
 
     # ---- 4. the non-causal path: 4 K3 and 3 K4 launches per step
-    B, frames = NONCAUSAL_PATH
-    nc = plc.NonCausalPLCEngine(params, plc_params, device=dev)
-    pcm_in, lost = tiled_speech(B, frames), loss_flags(B, frames)
-    nc.run(nc.init_state(B), pcm_in[:, :FS], lost[:, :1])            # warm
-    torch.cuda.synchronize()
-    zero_counts()
-    with Recorder(sample_cuda) as rec:
-        t0 = time.perf_counter()
-        st, out = nc.run(nc.init_state(B), pcm_in, lost)
+    nc_counts, nc_step_ms = {}, {}
+    for B, frames in NONCAUSAL_PATHS:
+        nc = plc.NonCausalPLCEngine(params, plc_params, device=dev)
+        pcm_in, lost = tiled_speech(B, frames), loss_flags(B, frames)
+        if B == 1:
+            lost[0, 1] = True       # one stream: make sure it loses a frame
+        nc.run(nc.init_state(B), pcm_in[:, :FS], lost[:, :1])        # warm
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    counts = dict(sample_cuda.launches)
-    calls.update(rec.calls)
-    o = out.cpu().numpy()
-    clean = ~lost.any(1)
-    delayed_ok = bool((o[clean, 80:] == pcm_in[clean, :-80]).all())
-    print(f"[noncausal] NonCausalPLCEngine B={B} x {frames} frames: launches"
-          f" {counts}; out {o.shape}, finite {bool(np.isfinite(o).all())}, "
-          f"max |out| {np.abs(o).max()}; {int(clean.sum())} streams without "
-          f"a loss equal their input delayed by 80 samples: {delayed_ok}")
-    if counts["tf_flat"] != 4 * frames or counts["teacher"] != 3 * frames \
-            or sum(counts.values()) != 7 * frames:
-        return fail(f"noncausal: expected {4 * frames} tf_flat and "
-                    f"{3 * frames} teacher launches, got {counts}")
-    expect_plan("noncausal", B, 4 * frames)
-    if o.shape != (B, frames * FS) or not np.isfinite(o).all() \
-            or np.abs(o).max() > 32767 or not delayed_ok:
-        return fail("noncausal: output is not the expected audio")
-    nc_counts = counts
-    print(f"[noncausal] {wall * 1e3 / frames:.4f} ms per step (host clock), "
-          f"RT factor {B * frames * 0.01 / wall:.1f}x [{card}]")
+        zero_counts()
+        with Recorder(sample_cuda) as rec:
+            t0 = time.perf_counter()
+            st, out = nc.run(nc.init_state(B), pcm_in, lost)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = dict(sample_cuda.launches)
+        calls.update(rec.calls)
+        o = out.cpu().numpy()
+        clean = ~lost.any(1)
+        delayed_ok = bool((o[clean, 80:] == pcm_in[clean, :-80]).all())
+        tag = f"NonCausalPLCEngine B={B}"
+        print(f"[noncausal] {tag} x {frames} frames: launches {counts}; out "
+              f"{o.shape}, finite {bool(np.isfinite(o).all())}, max |out| "
+              f"{np.abs(o).max()}; {int(clean.sum())} streams without a loss"
+              f" equal their input delayed by 80 samples: {delayed_ok}")
+        if counts["tf_flat"] != 4 * frames \
+                or counts["teacher"] != 3 * frames \
+                or sum(counts.values()) != 7 * frames:
+            return fail(f"{tag}: expected {4 * frames} tf_flat and "
+                        f"{3 * frames} teacher launches, got {counts}")
+        plans[("teacher", B)] = expect_plan(tag, B, 7 * frames)
+        if o.shape != (B, frames * FS) or not np.isfinite(o).all() \
+                or np.abs(o).max() > 32767 or not delayed_ok:
+            return fail(f"{tag}: output is not the expected audio")
+        if not (lost.any() and np.abs(o).max() > 0):
+            return fail(f"{tag}: nothing was concealed")
+        nc_counts[B] = counts
+        nc_step_ms[B] = wall * 1e3 / frames
+        print(f"[noncausal] {tag}: {wall * 1e3 / frames:.4f} ms per step "
+              f"(host clock), RT factor {B * frames * 0.01 / wall:.1f}x "
+              f"[{card}]")
 
     # ---- 4b. the other synthesis modes: one K3 launch per frame
     B, frames = STREAMING_PATH
@@ -687,52 +697,49 @@ def main() -> int:
                                       "batch": cond["cond_a"].shape[0]})
         return ok
 
+    def hold_teacher(tag, tables, state, cond, cfg, target):
+        """K4 against its plain version and against a fully forced K3
+        launch: every state field exact."""
+        st_k, _ = sample_cuda.teacher_advance(tables, state, cond, cfg,
+                                              target)
+        st_3, pcm_3 = sample_cuda.synth_samples(tables, state, cond, cfg,
+                                                target.shape[1],
+                                                target=target)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st_p, _ = sample_scan.teacher_advance(tables, state, cond, cfg,
+                                              target)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max(float((st_k[k] - st_p[k]).abs().max().cpu())
+                  for k in st_p)
+        same_p = {k: torch.equal(st_k[k], st_p[k]) for k in st_p}
+        same_3 = {k: torch.equal(st_k[k], st_3[k]) for k in st_p}
+        print(f"[hold] {tag}: every state field equal to plain "
+              f"{all(same_p.values())} {same_p}, to forced synth_samples "
+              f"{all(same_3.values())} {same_3} (forced pcm is the target "
+              f"{torch.equal(pcm_3, target)}); max |d| {err}; plain "
+              f"{plain_ms:.1f} ms (host clock) [{card}]")
+        held["teacher"].append({"max_abs_err": err, "plain_ms": plain_ms,
+                                "ns": target.shape[1],
+                                "batch": target.shape[0]})
+        return all(same_p.values()) and all(same_3.values()) \
+            and torch.equal(pcm_3, target)
+
     for key in sorted(calls, key=str):
         name, given, ns, B = key
         tag = (f"{name} ({'+'.join(given) or 'free-run'}, ns={ns}, B={B}) "
                f"vs plain")
         if name == "teacher":
-            tables, gru_a, gru_b, cond, seqs, cfg = calls[key]
-            ka, kb = sample_cuda.teacher_gru_advance(tables, gru_a, gru_b,
-                                                     cond, seqs, cfg)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            pa, pb = sample_scan.teacher_gru_advance(tables, gru_a, gru_b,
-                                                     cond, seqs, cfg)
-            torch.cuda.synchronize()
-            plain_ms = (time.perf_counter() - t0) * 1e3
-            err = max(float((ka - pa).abs().max()),
-                      float((kb - pb).abs().max()))
-            same = torch.equal(ka, pa) and torch.equal(kb, pb)
-            print(f"[hold] {tag}: GRU states max |d| {err} (gate < "
-                  f"{GATE_GRU}); bit-identical: {same}; plain "
-                  f"{plain_ms:.1f} ms (host clock) [{card}]")
-            held["teacher"].append({"max_abs_err": err, "plain_ms": plain_ms,
-                                    "ns": ns, "batch": B})
-            if not err < GATE_GRU:
-                return fail(f"{tag}: GRU states disagree")
+            if not hold_teacher(tag, *calls[key]):
+                return fail(f"{tag}: teacher_advance disagrees with its plain"
+                            f" version or with forced synth_samples")
         elif not hold_synth(tag, *calls[key]):
             return fail(f"{tag}: kernel disagrees with the plain version")
-
     big = PLC_PATHS[0][1]
-    tables, state, cond, cfg, ns, kw = calls[
-        ("tf_flat", ("target", "force_from"), FS, big)]
-
-    # K4 against a fully forced K3 launch, both through their wrappers
-    target = kw["target"]
-    st4, _ = sample_cuda.teacher_advance(tables, state, cond, cfg, target)
-    st3, pcm3 = sample_cuda.synth_samples(tables, state, cond, cfg, ns,
-                                          target=target)
-    leaves = {k: torch.equal(st4[k], st3[k]) for k in st3}
-    print(f"[hold] teacher_advance vs fully forced synth_samples (ns={ns}, "
-          f"B={big}): every state leaf equal {all(leaves.values())} "
-          f"{leaves}; forced pcm is the target "
-          f"{torch.equal(pcm3, target)}")
-    gru_err = max(float((st4[k] - st3[k]).abs().max())
-                  for k in ("gru_a", "gru_b"))
-    if not (gru_err < GATE_GRU and torch.equal(pcm3, target) and all(
-            leaves[k] for k in ("last_sig", "last_exc", "deemph", "rng"))):
-        return fail("teacher_advance disagrees with forced synth_samples")
+    for B in (big, 1):
+        if ("teacher", (), FS, B) not in calls:
+            return fail(f"no teacher_advance launch of ns={FS} at B={B}")
 
     # ---- 6. times
     ktime = {}
@@ -752,32 +759,27 @@ def main() -> int:
                   f"ns={ns}) B={B}: {ktime[('tf_' + variant, B)]:.4f} ms per"
                   f" launch (CUDA events), bound {bound[0]:.6f} ms "
                   f"({bound[1]}) [{card}]")
-        tables, state, cond, cfg, ns, kw = calls[
-            ("tf_flat", ("target", "force_from"), FS, B)]
-        target = kw["target"]
-        seqs = sample_scan.teacher_sequences(state, cond, cfg, target)
+        # K4: one launch per call; the host clock times the whole call
+        teacher_args = calls[("teacher", (), FS, B)]
         ktime[("teacher", B)] = cuda_ms(
-            lambda: sample_cuda.teacher_gru_advance(
-                tables, state["gru_a"], state["gru_b"], cond, seqs, cfg), 5)
-        t_seq = host_ms(lambda: sample_scan.teacher_sequences(
-            state, cond, cfg, target), 3)
-        t_rng = host_ms(lambda: kiss99.kiss99_advance(state["rng"], 2 * ns),
-                        3)
-        t_all = host_ms(lambda: sample_cuda.teacher_advance(
-            tables, state, cond, cfg, target), 3)
-        bound = teacher_bound_ms(B, ns)
-        print(f"[time] teacher_advance kernel (ns={ns}) B={B}: "
+            lambda: sample_cuda.teacher_advance(*teacher_args), 5)
+        plan_ms[("teacher", plans[("teacher", B)][0], B)] = ktime[
+            ("teacher", B)]
+        t_all = host_ms(lambda: sample_cuda.teacher_advance(*teacher_args),
+                        5)
+        bound = teacher_bound_ms(B, FS)
+        print(f"[time] teacher_advance (ns={FS}) B={B}: "
               f"{ktime[('teacher', B)]:.4f} ms per launch (CUDA events), "
-              f"bound {bound[0]:.6f} ms ({bound[1]}); around it, host "
-              f"clock: teacher_sequences {t_seq:.3f} ms, kiss99_advance "
-              f"{t_rng:.3f} ms, the whole teacher_advance call {t_all:.3f} "
-              f"ms [{card}]")
+              f"bound {bound[0]:.6f} ms ({bound[1]}); the whole "
+              f"teacher_advance call {t_all:.4f} ms (host clock, "
+              f"synchronised) [{card}]")
 
-    # K1 (flat, one frame per launch) and K3 (flat, the PLCEngine argument
-    # set, 160 samples) under each plan that can take the batch: B=1, the
-    # boundary, B=1024 (plan L cannot take 1024 streams); what the runs
-    # above timed already is not timed again
+    # K1 (flat) and K5 (fuse, opt), one frame per launch, K3 (flat, the
+    # PLCEngine argument set) and K4, 160 samples, under each plan that can
+    # take the batch: B=1, the boundary, B=1024 (plan L cannot take 1024
+    # streams); what the runs above timed already is not timed again
     k3_args = calls[("tf_flat", ("target", "force_from"), FS, big)]
+    k4_args = calls[("teacher", (), FS, big)]
     for B in (1, edge, big):
         tables, st0, conds = inputs[("flat", 1 if B == 1 else big)]
         ck = {k: conds[k][:B, :TIME_FRAMES].contiguous()
@@ -785,28 +787,43 @@ def main() -> int:
         s0 = slice_args(st0, B)
         tables3, state3, cond3, cfg3, ns3, kw3 = k3_args
         state3, cond3, kw3 = (slice_args(a, B) for a in (state3, cond3, kw3))
+        tables4, state4, cond4, cfg4, target4 = k4_args
+        state4, cond4, target4 = (slice_args(a, B)
+                                  for a in (state4, cond4, target4))
+
+        def frame_fn(variant):
+            return lambda: sample_cuda.synthesize_frames(
+                tables, s0, ck, cfg, variant=variant)
+
         timed = {
-            "flat": lambda: sample_cuda.synthesize_frames(
-                tables, s0, ck, cfg, variant="flat"),
+            "flat": frame_fn("flat"), "fuse": frame_fn("fuse"),
+            "opt": frame_fn("opt"),
             "tf_flat": lambda: sample_cuda.synth_samples(
-                tables3, state3, cond3, cfg3, ns3, **kw3)}
+                tables3, state3, cond3, cfg3, ns3, **kw3),
+            "teacher": lambda: sample_cuda.teacher_advance(
+                tables4, state4, cond4, cfg4, target4)}
         for plan in ("L", "T") if B <= edge else ("T",):
             for name, fn in timed.items():
                 if (name, plan, B) in plan_ms:
                     continue
                 with sample_cuda._plan_forced(dev, plan):
+                    frame = name in sample_cuda.FRAME_VARIANTS
                     plan_ms[(name, plan, B)] = cuda_ms(fn, 3) / (
-                        TIME_FRAMES if name == "flat" else 1)
+                        TIME_FRAMES if frame else 1)
                     if sample_cuda.last_plan[0] != plan:
                         return fail(f"times: plan {sample_cuda.last_plan}, "
                                     f"not {plan}")
             for name in timed:
+                if name == "teacher":
+                    bound, floor = (teacher_bound_ms(B, FS)[0],
+                                    floor_ms(B, FS, dual_fc=False))
+                else:
+                    bound, floor = (sample_bound_ms(B, FS, name == "tf_flat")
+                                    [0], floor_ms(B, FS))
                 print(f"[time] {name} plan {plan} B={B}: "
                       f"{plan_ms[(name, plan, B)]:.4f} ms per 160-sample "
-                      f"launch (CUDA events); floor {floor_ms(B, FS):.6f} "
-                      f"ms (--fmad=false issue), bound "
-                      f"{sample_bound_ms(B, FS, name != 'flat')[0]:.6f} ms "
-                      f"[{card}]")
+                      f"launch (CUDA events); floor {floor:.6f} ms "
+                      f"(--fmad=false issue), bound {bound:.6f} ms [{card}]")
     tables, st0, conds = inputs[("base", big)]      # 4 frames
     ck = {k: conds[k][:edge].contiguous() for k in ("cond_a", "cond_b", "lpc")}
     s0 = slice_args(st0, edge)
@@ -817,9 +834,11 @@ def main() -> int:
     print(f"[time] base plan L B={edge}: {plan_ms[('base', 'L', edge)]:.4f} "
           f"ms per launch (CUDA events) [{card}]")
 
-    # the phase split of the step under each plan
+    # the phase split of the step under each plan: the frame kernel and K4
     print_phases(sample_cuda, Synthesizer(params=params, device=dev), card,
                  (("L", 1), ("L", edge), ("T", big), ("T", 1)))
+    print_phases(sample_cuda, Synthesizer(params=params, device=dev), card,
+                 (("L", 1), ("T", big)), teacher=True)
 
     # the PLCEngine step's parts, one by one, on the last step's inputs
     for B in (big, 1):
@@ -951,7 +970,7 @@ def main() -> int:
             "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
             "batch": big, "held_argument_sets": len(hs)}
         if variant == "flat":
-            row.update(launches_noncausal=nc_counts["tf_flat"],
+            row.update(launches_noncausal=nc_counts[big]["tf_flat"],
                        launches_strict=strict_runs[big],
                        launches_strict_b1=strict_runs[1],
                        launches_streaming=mode_counts["streaming"],
@@ -970,14 +989,17 @@ def main() -> int:
         "name": "teacher_advance", "route": "cuda",
         "source": "lpcnet_tpu_torch/csrc/teacher_advance.cu",
         "replaces": "lpcnet_tpu/kernels/sample_pallas.py:610",
-        "launches": nc_counts["teacher"],
+        "launches": nc_counts[big]["teacher"],
         "max_abs_err": max(h["max_abs_err"] for h in hs),
-        "tolerance": f"GRU states to {GATE_GRU}",
+        "tolerance": "every state field exact (plain and forced K3)",
         "ms": ktime[("teacher", big)],
-        "plain_ms": max(h["plain_ms"] for h in hs),
+        "plain_ms": max(h["plain_ms"] for h in hs if h["batch"] == big),
         "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
-        "batch": big, "ms_b1": ktime[("teacher", 1)],
-        "bound_ms_b1": teacher_bound_ms(1, FS)[0]})
+        "batch": big, "launches_b1": nc_counts[1]["teacher"],
+        "ms_b1": ktime[("teacher", 1)],
+        "bound_ms_b1": teacher_bound_ms(1, FS)[0],
+        "noncausal_step_ms": nc_step_ms[big],
+        "noncausal_step_ms_b1": nc_step_ms[1], **plan_keys("teacher")})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -986,34 +1008,43 @@ def main() -> int:
     return 0
 
 
-def print_phases(sample_cuda, v, card, cases) -> None:
-    """[phases] lines: the phase-split instance of the frame kernel on
-    (plan, batch) cases, the plan forced through the cluster count that
-    launch_plan reads; us per step for each phase, by the SM clock of the
-    first CTA's loop. Beside them, us per step of the whole launch of the
-    frame kernel (no stamps) on the same inputs by CUDA events: the stamps'
-    own cost. (The stamping instance reads its stamps back after every
-    launch, so events around it would time the host too.)"""
+def print_phases(sample_cuda, v, card, cases, teacher=False) -> None:
+    """[phases] lines: the phase-split instance of the frame kernel, or of
+    K4 (teacher: 160 forced samples of the golden speech), on (plan, batch)
+    cases, the plan forced through the cluster count that launch_plan
+    reads; us per step for each phase, by the SM clock of the first CTA's
+    loop. Beside them, us per step of the whole launch of the same kernel
+    without stamps on the same inputs by CUDA events: the stamps' own cost.
+    (The stamping instance reads its stamps back after every launch, so
+    events around it would time the host too.)"""
     import torch
     for plan, B in cases:
         conds = v.conditions(tiled_features(B, 2))
         st = v.reset(B, per_stream_rng=True)
         cond = {k: conds[k][:, 1].contiguous()
                 for k in ("cond_a", "cond_b", "lpc")}
+        target = torch.as_tensor(tiled_speech(B, 1), device=v.device) \
+            if teacher else None
         with sample_cuda._plan_forced(v.device, plan):
             for _ in range(2):                         # the second counts
-                ph = sample_cuda.phase_split(v.tables, st, cond, v.cfg)
-            plain = cuda_ms(lambda: sample_cuda.synthesize_frame(
-                v.tables, st, cond["cond_a"], cond["cond_b"], cond["lpc"],
-                v.cfg), 3)
+                ph = sample_cuda.phase_split(v.tables, st, cond, v.cfg,
+                                             target=target)
+            if teacher:
+                plain = cuda_ms(lambda: sample_cuda.teacher_advance(
+                    v.tables, st, cond, v.cfg, target), 3)
+            else:
+                plain = cuda_ms(lambda: sample_cuda.synthesize_frame(
+                    v.tables, st, cond["cond_a"], cond["cond_b"],
+                    cond["lpc"], v.cfg), 3)
         torch.cuda.synchronize()
         if ph["plan"] != plan or sample_cuda.last_plan[0] != plan:
             raise RuntimeError(f"phases: plan {ph['plan']}, not {plan}")
-        print(f"[phases] plan {plan} (cluster {ph['cluster']}) B={B}: "
+        what = "teacher_advance" if teacher else "frame kernel"
+        print(f"[phases] {what} plan {plan} (cluster {ph['cluster']}) B={B}: "
               + ", ".join(f"{k} {ph[k]:.3f}"
                           for k in sample_cuda.PHASES + ("step",))
-              + f" us per step (SM clock {ph['clock_ghz']:.3f} GHz); frame "
-              f"kernel by CUDA events, launch / {FS}: "
+              + f" us per step (SM clock {ph['clock_ghz']:.3f} GHz); "
+              f"{what} by CUDA events, launch / {FS}: "
               f"{plain * 1e3 / FS:.3f} [{card}]")
 
 

@@ -1,19 +1,15 @@
 // The pieces of the LPCNet vocoder's autoregressive sample loop (reference
 // lpcnet.c:235-271, nnet.c:163-214) that the port's kernels share: the
-// argument block, the widths, the shared-memory layout of one 8-stream
-// tile, the bit-exact mu-law, KISS99 and the GRU phases as device
-// functions. Their users:
-//   sample_loop.cuh     the sample loop sample_l_kernel / sample_t_kernel
-//                       behind sample_frame.cu (K1, K2) and
-//                       synth_samples.cu (K3)
-//   teacher_advance.cu  the two GRU recurrences alone over a fully forced
-//                       segment (K4)
-//   sample_frame_opt.cu the fused frame kernel (K5)
+// argument block, the widths, the bit-exact mu-law, KISS99 and GRU-B's
+// phases as device functions. Their one user is the sample loop of
+// sample_loop.cuh, whose instances are every kernel of the port:
+//   sample_frame.cu     K1, K2 (one free-run frame)
+//   synth_samples.cu    K3 (teacher forcing and freeze)
+//   sample_frame_opt.cu K5 (the fused frame kernel, 'fuse' and 'opt')
+//   teacher_advance.cu  K4 (a fully forced segment without the tail)
 // They replace the TPU kernels of lpcnet_tpu/kernels/sample_pallas.py.
-// K4 and a fully forced K3 launch sum the GRUs in the same order (K3's
-// plans repeat these functions' sums term for term), so they leave the
-// same GRU bits. What bounds the loop on an H100 and what each plan does
-// about it is in sample_loop.cuh.
+// What bounds the loop on an H100 and what each launch plan does about it
+// is in sample_loop.cuh.
 // Numerics: IEEE expf/tanhf, sigmoid = 1/(1+expf(-x)), no fast math, built
 // with --fmad=false; every sum has a fixed order that the plain version
 // (kernels/sample_scan.py) repeats; the mu-law bit trick and the
@@ -32,15 +28,16 @@ struct LpcnetFrameParams {
   const float* lpc;         // (B, *) rows of stride lpc_stride, ORDER used
   long long ca_stride, cb_stride, lpc_stride;
   const float* tbl_sig;     // (NL, 3*NA) embedding tables folded
-  const float* tbl_pred;    //   through GRU-A's input kernel
-  const float* tbl_exc;
+  const float* tbl_pred;    //   through GRU-A's input kernel (K5: rows
+  const float* tbl_exc;     //   0, NL, 2*NL of tbl_cat (3*NL, 3*NA))
   const float* wr_a;        // (NA, 3*NA)
   const float* br_a;        // (3*NA)
   const float* wi_b;        // (NA, 3*NB)
   const float* wr_b;        // (NB, 3*NB)
   const float* br_b;        // (3*NB)
-  const float* dfc_w;       // (2, NB, NL)
-  const float* dfc_b;       // (2, NL)
+  const float* dfc_w;       // (2, NB, NL); K5: dfc_w12 (NB, 2*NL) =
+                            //   [w1 | w2]; K4: unused
+  const float* dfc_b;       // (2, NL); K5: dfc_b12, the same layout
   const float* dfc_f;       // (2, NL)
   const float* logit_tbl;   // (2, NL): SAMPLING_LOGIT_TABLE, ULAW2LIN_TABLE
   const float* gru_a_in;    // (B, NA)
@@ -55,9 +52,10 @@ struct LpcnetFrameParams {
   int* exc_out;
   float* deemph_out;
   long long* rng_out;
-  float* pcm;               // (B, *) rows of stride pcm_stride
+  float* pcm;               // (B, *) rows of stride pcm_stride; K4: unused
   long long pcm_stride;
-  // teacher forcing and freeze (synth_samples.cu only)
+  // teacher forcing (synth_samples.cu; teacher_advance.cu forces every
+  // step from target) and freeze (synth_samples.cu)
   const float* target;      // (B, *) rows of stride tgt_stride, or null
   long long tgt_stride;
   const int* preload;       // (B): steps i < preload follow the target
@@ -65,7 +63,7 @@ struct LpcnetFrameParams {
                             //   both are set whenever target is
   const int* n_active;      // (B): steps i >= n_active freeze, or null
   int batch;
-  int nsamples;             // steps per launch (sample_frame.cu: FS)
+  int nsamples;             // steps per launch (K1, K2, K5: FS)
   float preemph;
   const float* wr_a_l;      // (16, 3*NA/16, NA): wr_a repacked for plan L,
                             //   [cta][gate*24 + unit][k]
@@ -89,32 +87,6 @@ constexpr unsigned ALL_ACTIVE = (1u << TILE) - 1u;
 static_assert(TILE == 8, "GRU-A state reads are two float4 per k");
 static_assert(TILE * G3B == THREADS, "one thread per (stream, GRU-B gate)");
 static_assert(KPART * KSLICE == NA, "wi_b slices cover GRU-A");
-
-// Shared memory of one tile (plan T of the sample loop, K4, K5), in floats (every size is a multiple of
-// 4: float4-aligned)
-constexpr int OFF_WI_B = 0;
-constexpr int OFF_WR_B = OFF_WI_B + NA * G3B;
-constexpr int OFF_BR_B = OFF_WR_B + NB * G3B;
-constexpr int OFF_DFC_W = OFF_BR_B + G3B;
-constexpr int OFF_DFC_B = OFF_DFC_W + 2 * NB * NL;
-constexpr int OFF_DFC_F = OFF_DFC_B + 2 * NL;
-constexpr int OFF_LOGIT = OFF_DFC_F + 2 * NL;
-constexpr int OFF_U2L = OFF_LOGIT + NL;
-constexpr int OFF_HA = OFF_U2L + NL;
-constexpr int OFF_PART = OFF_HA + NA * TILE;
-constexpr int OFF_CB = OFF_PART + KPART * TILE * G3B;
-constexpr int OFF_ZRH_B = OFF_CB + TILE * G3B;
-constexpr int OFF_REC_B = OFF_ZRH_B + TILE * G3B;
-constexpr int OFF_HB = OFF_REC_B + TILE * G3B;
-constexpr int OFF_LOGITS = OFF_HB + TILE * NB;
-constexpr int OFF_THR = OFF_LOGITS + TILE * NL;
-constexpr int OFF_SIG = OFF_THR + TILE * 8;
-constexpr int OFF_LPC = OFF_SIG + TILE * ORDER;
-constexpr int OFF_IDX = OFF_LPC + TILE * ORDER;      // int: lsu, pu, exc
-constexpr int OFF_EXC = OFF_IDX + TILE * 4;          // int: sampled exc
-constexpr int OFF_NACT = OFF_EXC + TILE;             // int: active counts
-constexpr int OFF_CMP = OFF_NACT + TILE;             // bytes: node compares
-constexpr size_t SMEM_BYTES = OFF_CMP * sizeof(float) + TILE * NL;
 
 __device__ __forceinline__ float sigmoidf(float x) {
   return 1.0f / (1.0f + expf(-x));
@@ -151,62 +123,6 @@ __device__ __forceinline__ uint32_t kiss99(uint32_t st[4]) {
   st[2] = shr3;
   st[3] = cong;
   return (mwc ^ cong) + shr3;
-}
-
-// GRU-A: thread j computes unit j's three gates for every stream of the
-// tile and updates its register copy h_own. s_ha is [k][stream], s_idx is
-// [stream][lsu, pu, exc, -]; ca holds cond_a[stream][gate][j]. Streams whose
-// bit in `active` is clear keep their state.
-__device__ __forceinline__ void gru_a_update(
-    const float* __restrict__ wr_a, const float* __restrict__ tbl_sig,
-    const float* __restrict__ tbl_pred, const float* __restrict__ tbl_exc,
-    const float* s_ha, const int* s_idx, const float (&ca)[TILE][3],
-    float bra0, float bra1, float bra2, int j, unsigned active,
-    float (&h_own)[TILE]) {
-  // sums start from the k = 0 product, as the plain version's do
-  float acc[TILE][3];
-  const float* w = wr_a + j;
-  {
-    const float w0 = __ldg(w), w1 = __ldg(w + NA), w2 = __ldg(w + 2 * NA);
-#pragma unroll
-    for (int s = 0; s < TILE; ++s) {
-      acc[s][0] = s_ha[s] * w0;
-      acc[s][1] = s_ha[s] * w1;
-      acc[s][2] = s_ha[s] * w2;
-    }
-  }
-#pragma unroll 4
-  for (int k = 1; k < NA; ++k) {
-    const float w0 = __ldg(w + k * G3A);
-    const float w1 = __ldg(w + k * G3A + NA);
-    const float w2 = __ldg(w + k * G3A + 2 * NA);
-    const float4 ha = *reinterpret_cast<const float4*>(s_ha + k * TILE);
-    const float4 hb = *reinterpret_cast<const float4*>(s_ha + k * TILE + 4);
-    const float h[TILE] = {ha.x, ha.y, ha.z, ha.w, hb.x, hb.y, hb.z, hb.w};
-#pragma unroll
-    for (int s = 0; s < TILE; ++s) {
-      acc[s][0] += h[s] * w0;
-      acc[s][1] += h[s] * w1;
-      acc[s][2] += h[s] * w2;
-    }
-  }
-#pragma unroll
-  for (int s = 0; s < TILE; ++s) {
-    const int* idx = s_idx + s * 4;
-    const float* ts = tbl_sig + idx[0] * G3A + j;
-    const float* tp = tbl_pred + idx[1] * G3A + j;
-    const float* te = tbl_exc + idx[2] * G3A + j;
-    float zrh[3];
-#pragma unroll
-    for (int g = 0; g < 3; ++g)
-      zrh[g] = ((ca[s][g] + __ldg(ts + g * NA)) + __ldg(tp + g * NA))
-               + __ldg(te + g * NA);
-    const float z = sigmoidf(zrh[0] + (acc[s][0] + bra0));
-    const float r = sigmoidf(zrh[1] + (acc[s][1] + bra1));
-    const float hc = tanhf(zrh[2] + r * (acc[s][2] + bra2));
-    const float hn = z * h_own[s] + (1.0f - z) * hc;
-    h_own[s] = (active >> s) & 1u ? hn : h_own[s];
-  }
 }
 
 // GRU-B input product gru_a @ wi_b, one KSLICE-row slice per thread group;

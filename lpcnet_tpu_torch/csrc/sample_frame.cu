@@ -11,6 +11,8 @@
 
 #include "sample_loop.cuh"
 
+using lpcnet::FRAME;
+
 extern "C" {
 
 // Launches one frame under `plan` (0: L, 1: T) with `grid` CTAs on
@@ -21,8 +23,8 @@ int lpcnet_sample_frame(const LpcnetFrameParams* p, int flat, int plan,
   if (p->batch <= 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(flat
-      ? lpcnet::launch_sample<true, false, false>(p, plan, grid, clusters, s)
-      : lpcnet::launch_sample<false, false, false>(p, plan, grid, clusters,
+      ? lpcnet::launch_sample<FRAME, true, false>(p, plan, grid, clusters, s)
+      : lpcnet::launch_sample<FRAME, false, false>(p, plan, grid, clusters,
                                                    s));
 }
 
@@ -31,18 +33,18 @@ int lpcnet_sample_frame(const LpcnetFrameParams* p, int flat, int plan,
 int lpcnet_sample_phases(const LpcnetFrameParams* p, int plan, int grid,
                          int clusters, void* stream) {
   if (p->batch <= 0 || p->prof == nullptr) return (int)cudaErrorInvalidValue;
-  return (int)lpcnet::launch_sample<true, false, true>(
+  return (int)lpcnet::launch_sample<FRAME, true, true>(
       p, plan, grid, clusters, static_cast<cudaStream_t>(stream));
 }
 
 // Readies every instance of this library on the current device and lowers
 // *count to the least number of plan-L clusters any of them runs at once.
 int lpcnet_prepare_plans(int* count) {
-  cudaError_t err = lpcnet::prepare_plans<true, false, false>(count);
+  cudaError_t err = lpcnet::prepare_plans<FRAME, true, false>(count);
   if (err == cudaSuccess)
-    err = lpcnet::prepare_plans<false, false, false>(count);
+    err = lpcnet::prepare_plans<FRAME, false, false>(count);
   if (err == cudaSuccess)
-    err = lpcnet::prepare_plans<true, false, true>(count);
+    err = lpcnet::prepare_plans<FRAME, true, true>(count);
   return (int)err;
 }
 

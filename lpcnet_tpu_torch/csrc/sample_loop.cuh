@@ -4,11 +4,16 @@
 // lpcnet_tpu/kernels/sample_pallas.py
 //   K1 _frame_kernel_flat, K2 _frame_kernel      (sample_frame.cu)
 //   K3 _tf_frame_kernel_flat, _tf_frame_kernel   (synth_samples.cu)
-// FLAT picks the sampler (flat sampling tree or the walked one; same bits),
-// TF adds the forcing and freeze machinery, whose inputs are run-time
-// pointers uniform over the grid (a null target or n_active switches that
-// part off). PROF adds clock stamps around each phase of the step on the
-// first CTA (the phase-split instance; never the main path).
+//   K5 _frame_kernel_opt ('fuse', 'opt')         (sample_frame_opt.cu)
+//   K4 _teacher_kernel                           (teacher_advance.cu)
+// KIND (enum Kind below) says which: FORCED adds the forcing and freeze
+// machinery, whose inputs are run-time pointers uniform over the grid (a
+// null target or n_active switches that part off); FUSE and OPT read K5's
+// fused dual-FC weight and, OPT, draw each sample's thresholds one sample
+// ahead; TEACHER forces every step and drops the tail. FLAT picks the
+// sampler (flat sampling tree or the walked one; same bits). PROF adds
+// clock stamps around each phase of the step on the first CTA (the
+// phase-split instances; never the main path).
 //
 // What bounds it on an H100 (132 SMs, 227 KB of shared memory per block):
 //   * Each step of a stream is one serialized chain (pred -> mu-law ->
@@ -60,6 +65,31 @@
 //     __ldg, the same consumers; tools/plan_t_ablation.py) GRU-A took
 //     75.1 us per step against the ring's 48.5 on an H100 80GB HBM3 at
 //     700 W, and a frame 9.95 ms against 8.90.
+// K5 and K4 are instances of the same two plans, so they keep K2's and
+// K3's sums term for term and leave their bits:
+//   * K5 reads the TPU kernel's fused operands: the wrapper points the
+//     three table pointers at rows 0, NL and 2*NL of tbl_cat, and the
+//     staging reads dfc_w12 (NB, 2*NL) into the (2, NB, NL) layout of
+//     dfc_w through its own index map. 'opt' draws the two KISS99 numbers
+//     and eight thresholds of sample i+1 during sample i on the RNG
+//     threads (lanes 0-7 of warp 4) into the other half of a
+//     double-buffered threshold array; nothing is drawn for the last
+//     sample. Plan L: during the GRU-A loop, which leaves warp 4 idle.
+//     Plan T has no idle thread among its consumers, and a lane of the
+//     producer warp would serialise against the bulk-copy issue and is not
+//     on the consumers' named barrier, so warp 4 draws in the dual-FC
+//     phase, where it has one round less than warps 0-3. Measured on an
+//     H100 80GB HBM3 at 700 W (chip_smoke.py), 'opt' is no faster than
+//     'fuse' in either plan (+0.4% at B=1, -0.4% at B=1024), and no
+//     faster with plan L's draws on warp 3, whose scheduler GRU-A leaves
+//     idle: on a stream thread the integer draws run beside phase A's
+//     dependent float chain (the prediction) and cost nothing.
+//   * K4 is the loop without its tail: every step forced from the target
+//     (phase A's prediction and mu-laws, the RNG advanced by two draws
+//     with no lookups, GRU-A, GRU-B, phase H's forced update), no dual-FC,
+//     sampler or pcm. The table indices and the de-emphasis chain that the
+//     first design took precomputed from the host are computed in the
+//     loop, where the stream threads were idle.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -71,6 +101,26 @@ namespace lpcnet {
 namespace cg = cooperative_groups;
 
 constexpr size_t SMEM_LIMIT = 232448;    // dynamic shared memory per block
+
+// ---- the instances of the loop
+enum Kind : int {
+  FRAME = 0,     // K1, K2: one free-run frame
+  FORCED = 1,    // K3: nsamples steps, teacher forcing and freeze
+  FUSE = 2,      // K5 'fuse': K2 on the fused operands
+  OPT = 3,       // K5 'opt': FUSE, thresholds drawn one sample ahead
+  TEACHER = 4,   // K4: nsamples forced steps without the tail
+};
+
+template <int KIND>
+struct Traits {
+  static constexpr bool TF = KIND == FORCED;
+  static constexpr bool FUSED = KIND == FUSE || KIND == OPT;
+  static constexpr bool PIPELINE = KIND == OPT;
+  static constexpr bool TEACH = KIND == TEACHER;
+  static constexpr bool TAIL = !TEACH;         // dual-FC, sampler, pcm
+  static constexpr bool NS_ARG = TF || TEACH;  // nsamples from the block
+};
+
 
 // ---- plan L
 constexpr int CLUSTER_L = 16;             // CTAs per tile
@@ -85,6 +135,13 @@ constexpr unsigned PART_BYTES = TILE * G3B * sizeof(float);
 static_assert(KPART <= CLUSTER_L, "one wi_b slice per CTA at most");
 static_assert(UNITS_L % 4 == 0, "the state exchange moves float4");
 static_assert(GRU_THREADS_L <= THREADS_L, "GRU-A threads are a subset");
+// the first RNG thread of the pipelined instance (K5 'opt'; one per stream
+// of the tile): lane 0 of warp 4
+constexpr int RNG_T0 = 4 * 32;
+static_assert(RNG_T0 >= GRU_THREADS_L && RNG_T0 + TILE <= THREADS_L,
+              "plan L: the RNG threads hold no GRU-A work");
+static_assert(RNG_T0 >= TILE * NL % THREADS,
+              "plan T: the RNG threads have one dual-FC round less");
 
 // Shared memory of plan L per CTA, in floats:
 //   wr_a slice [72][388]                  111,744 B
@@ -95,10 +152,12 @@ static_assert(GRU_THREADS_L <= THREADS_L, "GRU-A threads are a subset");
 //   logit + ULAW2LIN tables                 2,048 B
 //   slice partials [8][8][48]              12,288 B
 //   GRU-B cb, zrh, rec, h                   5,120 B
-//   logits, thresholds, sig, lpc            9,472 B
+//   logits, thresholds [2], sig, lpc        9,728 B
 //   indices, exc, active counts, compares   2,240 B
 //   3 mbarriers of the exchanges (+pad)        32 B
-//   total                                 217,120 B
+//   total                                 217,376 B
+// (every instance takes this layout; K4 leaves the tail's buffers unused,
+// and only K5 'opt' uses the second threshold buffer)
 constexpr int L_WA = 0;
 constexpr int L_HA = L_WA + COLS_L * KPAD;
 constexpr int L_WIB = L_HA + 2 * TILE * KPAD;
@@ -116,7 +175,7 @@ constexpr int L_REC_B = L_ZRH_B + TILE * G3B;
 constexpr int L_HB = L_REC_B + TILE * G3B;
 constexpr int L_LOGITS = L_HB + TILE * NB;
 constexpr int L_THR = L_LOGITS + TILE * NL;
-constexpr int L_SIG = L_THR + TILE * 8;
+constexpr int L_SIG = L_THR + 2 * TILE * 8;
 constexpr int L_LPC = L_SIG + TILE * ORDER;
 constexpr int L_IDX = L_LPC + TILE * ORDER;          // int: lsu, pu, exc
 constexpr int L_EXC = L_IDX + TILE * 4;              // int: sampled exc
@@ -125,7 +184,7 @@ constexpr int L_CMP = L_NACT + TILE;                 // bytes: node compares
 constexpr size_t L_BARS = L_CMP * sizeof(float) + TILE * NL;
 constexpr size_t L_SMEM_BYTES = L_BARS + 4 * sizeof(uint64_t);
 static_assert(L_BARS % 8 == 0, "mbarriers are 8-byte aligned");
-static_assert(L_SMEM_BYTES == 217120, "the table above");
+static_assert(L_SMEM_BYTES == 217376, "the table above");
 static_assert(L_SMEM_BYTES <= SMEM_LIMIT, "plan L fits one block");
 
 // ---- plan T
@@ -147,18 +206,48 @@ constexpr bool T_ABLATE_RING = true;
 #else
 constexpr bool T_ABLATE_RING = false;
 #endif
-// Shared memory of plan T:
-//   the tile layout of lpcnet_sample.cuh   157,312 B
-//   ring 4 x 4 rows of wr_a                 73,728 B
-//   8 mbarriers                                 64 B
-//   total                                  231,104 B
+// Shared memory of plan T, in floats (every size is a multiple of 4:
+// float4-aligned):
+//   wi_b, wr_b, br_b                       76,992 B
+//   dual-FC w, b, factor                   36,864 B
+//   logit + ULAW2LIN tables                 2,048 B
+//   s_ha [k][stream]                       12,288 B
+//   slice partials, GRU-B cb, zrh, rec, h  17,408 B
+//   logits, thresholds [2], sig, lpc        9,728 B
+//   indices, exc, active counts, compares   2,240 B
+//   ring 4 x 4 rows of wr_a                73,728 B
+//   8 mbarriers                                64 B
+//   total                                 231,360 B
 // (8 slots, with wi_b read through L2 instead, were no faster: the loop
-// does not wait on the ring.)
-constexpr size_t T_RING = SMEM_BYTES;
+// does not wait on the ring. Every instance takes this layout, as plan
+// L's.)
+constexpr int OFF_WI_B = 0;
+constexpr int OFF_WR_B = OFF_WI_B + NA * G3B;
+constexpr int OFF_BR_B = OFF_WR_B + NB * G3B;
+constexpr int OFF_DFC_W = OFF_BR_B + G3B;
+constexpr int OFF_DFC_B = OFF_DFC_W + 2 * NB * NL;
+constexpr int OFF_DFC_F = OFF_DFC_B + 2 * NL;
+constexpr int OFF_LOGIT = OFF_DFC_F + 2 * NL;
+constexpr int OFF_U2L = OFF_LOGIT + NL;
+constexpr int OFF_HA = OFF_U2L + NL;
+constexpr int OFF_PART = OFF_HA + NA * TILE;
+constexpr int OFF_CB = OFF_PART + KPART * TILE * G3B;
+constexpr int OFF_ZRH_B = OFF_CB + TILE * G3B;
+constexpr int OFF_REC_B = OFF_ZRH_B + TILE * G3B;
+constexpr int OFF_HB = OFF_REC_B + TILE * G3B;
+constexpr int OFF_LOGITS = OFF_HB + TILE * NB;
+constexpr int OFF_THR = OFF_LOGITS + TILE * NL;
+constexpr int OFF_SIG = OFF_THR + 2 * TILE * 8;
+constexpr int OFF_LPC = OFF_SIG + TILE * ORDER;
+constexpr int OFF_IDX = OFF_LPC + TILE * ORDER;      // int: lsu, pu, exc
+constexpr int OFF_EXC = OFF_IDX + TILE * 4;          // int: sampled exc
+constexpr int OFF_NACT = OFF_EXC + TILE;             // int: active counts
+constexpr int OFF_CMP = OFF_NACT + TILE;             // bytes: node compares
+constexpr size_t T_RING = OFF_CMP * sizeof(float) + TILE * NL;
 constexpr size_t T_BARS = T_RING + (size_t)RING_STAGES * CHUNK_BYTES;
 constexpr size_t T_SMEM_BYTES = T_BARS + 2 * RING_STAGES * sizeof(uint64_t);
 static_assert(T_RING % 128 == 0, "the ring is 128-byte aligned");
-static_assert(T_SMEM_BYTES == 231104, "the table above");
+static_assert(T_SMEM_BYTES == 231360, "the table above");
 static_assert(T_SMEM_BYTES <= SMEM_LIMIT, "plan T fits one block");
 
 // ---- mbarriers and bulk copies (PTX)
@@ -290,6 +379,7 @@ struct StreamState {
   int exc, preload, force_from;
 };
 
+// forcing: the block carries preload and force_from (K3 with a target)
 __device__ __forceinline__ void load_stream(const LpcnetFrameParams& p,
                                             int b, bool forcing,
                                             StreamState& st) {
@@ -303,7 +393,23 @@ __device__ __forceinline__ void load_stream(const LpcnetFrameParams& p,
   }
 }
 
-// A. prediction, mu-law inputs, thresholds of stream s
+// Two KISS99 draws -> the 8 thresholds of one sample, low byte first.
+__device__ __forceinline__ void draw_thresholds(uint32_t (&rng)[4],
+                                                const float* s_logit,
+                                                float* thr) {
+  const uint32_t r1 = kiss99(rng);
+  const uint32_t r2 = kiss99(rng);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    thr[k] = s_logit[(r1 >> (8 * k)) & 0xFFu];
+    thr[4 + k] = s_logit[(r2 >> (8 * k)) & 0xFFu];
+  }
+}
+
+// A. prediction and mu-law inputs of stream s, and its thresholds from two
+// KISS99 draws; K4 advances the RNG by the two draws without lookups, K5
+// 'opt' draws on the RNG threads instead.
+template <int KIND>
 __device__ __forceinline__ void phase_a(int s, bool advance,
                                         const float* s_sig,
                                         const float* s_lpc,
@@ -318,23 +424,25 @@ __device__ __forceinline__ void phase_a(int s, bool advance,
   s_idx[s * 4 + 0] = lin2ulaw(sig[0]);
   s_idx[s * 4 + 1] = lin2ulaw(st.pred);
   s_idx[s * 4 + 2] = st.exc;
+  if (Traits<KIND>::PIPELINE) return;
   uint32_t next[4] = {st.rng[0], st.rng[1], st.rng[2], st.rng[3]};
-  const uint32_t r1 = kiss99(next);
-  const uint32_t r2 = kiss99(next);
+  if (Traits<KIND>::TEACH) {
+    kiss99(next);
+    kiss99(next);
+  } else {
+    draw_thresholds(next, s_logit, s_thr + s * 8);
+  }
   if (advance) {
 #pragma unroll
     for (int q = 0; q < 4; ++q) st.rng[q] = next[q];
   }
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    s_thr[s * 8 + k] = s_logit[(r1 >> (8 * k)) & 0xFFu];
-    s_thr[s * 8 + 4 + k] = s_logit[(r2 >> (8 * k)) & 0xFFu];
-  }
 }
 
-// H. excitation -> signal, de-emphasis, clip, round of stream s at step i;
-// `mine`: s is a real stream; `writer`: this CTA writes its pcm.
-template <bool FLAT>
+// H. excitation -> signal, de-emphasis, clip, round of stream s at step i
+// under the thresholds s_thr; `mine`: s is a real stream; `writer`: this
+// CTA writes its pcm. K4 takes every step from the target and emits
+// nothing.
+template <int KIND, bool FLAT>
 __device__ __forceinline__ void phase_h(const LpcnetFrameParams& p, int b,
                                         int s, int i, bool advance,
                                         bool forcing, bool mine,
@@ -343,10 +451,11 @@ __device__ __forceinline__ void phase_h(const LpcnetFrameParams& p, int b,
                                         const float* s_thr, const int* s_exc,
                                         const float* s_u2l,
                                         StreamState& st) {
-  int e;
-  if (FLAT) {
+  using T = Traits<KIND>;
+  int e = 0;
+  if (T::TAIL && FLAT) {
     e = s_exc[s];
-  } else {
+  } else if (T::TAIL) {
     const float* lg = s_logits + s * NL;
     int val = 0;
 #pragma unroll
@@ -361,7 +470,7 @@ __device__ __forceinline__ void phase_h(const LpcnetFrameParams& p, int b,
   if (forcing) {
     tgt = mine ? p.target[b * p.tgt_stride + i] : 0.0f;
     tf_sig = tgt - p.preemph * st.deemph;
-    forced = i < st.preload || i >= st.force_from;
+    forced = T::TEACH || i < st.preload || i >= st.force_from;
     if (forced) e = lin2ulaw(tf_sig - st.pred);
   }
   const float pcm = forced ? tf_sig : st.pred + s_u2l[e];
@@ -374,22 +483,41 @@ __device__ __forceinline__ void phase_h(const LpcnetFrameParams& p, int b,
     st.deemph = out;
     st.exc = e;
   }
-  out = fminf(fmaxf(out, -32767.0f), 32767.0f);
-  out = floorf(0.5f + out);
-  if (forced) out = tgt;
-  if (!advance) out = 0.0f;
-  if (writer) p.pcm[b * p.pcm_stride + i] = out;
+  if (T::TAIL) {
+    out = fminf(fmaxf(out, -32767.0f), 32767.0f);
+    out = floorf(0.5f + out);
+    if (forced) out = tgt;
+    if (!advance) out = 0.0f;
+    if (writer) p.pcm[b * p.pcm_stride + i] = out;
+  }
 }
 
+// rng: K5 'opt' keeps it on the RNG threads, which store it themselves
+template <int KIND>
 __device__ __forceinline__ void store_stream(const LpcnetFrameParams& p,
                                              int b, const float* sig,
                                              const StreamState& st) {
 #pragma unroll
   for (int k = 0; k < ORDER; ++k) p.sig_out[b * ORDER + k] = sig[k];
+  if (!Traits<KIND>::PIPELINE) {
 #pragma unroll
-  for (int q = 0; q < 4; ++q) p.rng_out[b * 4 + q] = st.rng[q];
+    for (int q = 0; q < 4; ++q) p.rng_out[b * 4 + q] = st.rng[q];
+  }
   p.exc_out[b] = st.exc;
   p.deemph_out[b] = st.deemph;
+}
+
+// K5 'opt': the RNG of stream s on its RNG thread, and its store
+__device__ __forceinline__ void load_rng(const LpcnetFrameParams& p, int b,
+                                         uint32_t (&rng)[4]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) rng[q] = (uint32_t)p.rng_in[b * 4 + q];
+}
+
+__device__ __forceinline__ void store_rng(const LpcnetFrameParams& p, int b,
+                                          const uint32_t (&rng)[4]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) p.rng_out[b * 4 + q] = rng[q];
 }
 
 // F. dual-FC logits, item = (stream, class), over NT threads
@@ -453,20 +581,32 @@ __device__ __forceinline__ unsigned active_mask(bool freezing, int i,
   return active;
 }
 
+// K5's dfc_w12 (NB, 2*NL) = [w1 | w2] read into the (2, NB, NL) layout of
+// dfc_w: the source of element i of that layout.
+__host__ __device__ constexpr int fused_dfc_src(int i) {
+  return (i / NL) % NB * 2 * NL + i / (NB * NL) * NL + i % NL;
+}
+
 // Staging shared by both plans: the GRU-B weights but wi_b, the dual-FC
-// and the two tables, and the tile's per-stream inputs.
+// and the two tables (K4: none of the tail's), and the tile's per-stream
+// inputs.
+template <int KIND>
 __device__ __forceinline__ void stage_tail(
     const LpcnetFrameParams& p, int b0, int nvalid, bool freezing, int tid,
     int nt, float* s_wr_b, float* s_br_b, float* s_dfc_w, float* s_dfc_b,
     float* s_dfc_f, float* s_logit, float* s_cb, float* s_hb, float* s_sig,
     float* s_lpc, int* s_nact) {
+  using T = Traits<KIND>;
   for (int i = tid; i < NB * G3B; i += nt) s_wr_b[i] = p.wr_b[i];
   for (int i = tid; i < G3B; i += nt) s_br_b[i] = p.br_b[i];
-  for (int i = tid; i < 2 * NB * NL; i += nt) s_dfc_w[i] = p.dfc_w[i];
-  for (int i = tid; i < 2 * NL; i += nt) {
-    s_dfc_b[i] = p.dfc_b[i];
-    s_dfc_f[i] = p.dfc_f[i];
-    s_logit[i] = p.logit_tbl[i];      // s_logit and s_u2l are contiguous
+  if (T::TAIL) {
+    for (int i = tid; i < 2 * NB * NL; i += nt)
+      s_dfc_w[i] = p.dfc_w[T::FUSED ? fused_dfc_src(i) : i];
+    for (int i = tid; i < 2 * NL; i += nt) {
+      s_dfc_b[i] = p.dfc_b[i];
+      s_dfc_f[i] = p.dfc_f[i];
+      s_logit[i] = p.logit_tbl[i];    // s_logit and s_u2l are contiguous
+    }
   }
   for (int i = tid; i < TILE * G3B; i += nt) {
     const int s = i / G3B, o = i % G3B;
@@ -518,9 +658,10 @@ __device__ __forceinline__ void gru_a_quad(const float* w0, const float* w1,
 }
 
 // ---- plan L: a 16-CTA cluster per tile of 8 streams
-template <bool FLAT, bool TF, bool PROF>
+template <int KIND, bool FLAT, bool PROF>
 __global__ void __launch_bounds__(THREADS_L, 1)
 sample_l_kernel(const LpcnetFrameParams p) {
+  using T = Traits<KIND>;
   extern __shared__ __align__(128) float smem[];
   float* s_wa = smem + L_WA;            // [column][KPAD]: this CTA's slice
   float* s_ha = smem + L_HA;            // [parity][stream][KPAD]
@@ -538,7 +679,7 @@ sample_l_kernel(const LpcnetFrameParams p) {
   float* s_rec_b = smem + L_REC_B;
   float* s_hb = smem + L_HB;            // [stream][unit]
   float* s_logits = smem + L_LOGITS;    // [stream][class]
-  float* s_thr = smem + L_THR;          // [stream][level]
+  float* s_thr = smem + L_THR;          // [buffer][stream][level]
   float* s_sig = smem + L_SIG;          // [stream][lag]
   float* s_lpc = smem + L_LPC;          // [stream][coef]
   int* s_idx = reinterpret_cast<int*>(smem + L_IDX);
@@ -556,9 +697,10 @@ sample_l_kernel(const LpcnetFrameParams p) {
   const int tid = threadIdx.x;
   const int b0 = (blockIdx.x / CLUSTER_L) * TILE;
   const int nvalid = max(0, min(TILE, p.batch - b0));
-  const int ns = TF ? p.nsamples : FS;
-  const bool forcing = TF && p.target != nullptr;
-  const bool freezing = TF && p.n_active != nullptr;
+  const int ns = T::NS_ARG ? p.nsamples : FS;
+  const bool tf_forcing = T::TF && p.target != nullptr;
+  const bool forcing = T::TEACH || tf_forcing;
+  const bool freezing = T::TF && p.n_active != nullptr;
   // bytes that reach this CTA per step: 15 state slabs, and a partial from
   // each of the slice CTAs but itself
   const unsigned h_bytes = (CLUSTER_L - 1) * SLAB_BYTES;
@@ -583,9 +725,9 @@ sample_l_kernel(const LpcnetFrameParams p) {
   if (rank < KPART)
     for (int i = tid; i < KSLICE * G3B; i += THREADS_L)
       s_wib[i] = p.wi_b[rank * KSLICE * G3B + i];
-  stage_tail(p, b0, nvalid, freezing, tid, THREADS_L, s_wr_b, s_br_b,
-             s_dfc_w, s_dfc_b, s_dfc_f, s_logit, s_cb, s_hb, s_sig, s_lpc,
-             s_nact);
+  stage_tail<KIND>(p, b0, nvalid, freezing, tid, THREADS_L, s_wr_b, s_br_b,
+                   s_dfc_w, s_dfc_b, s_dfc_f, s_logit, s_cb, s_hb, s_sig,
+                   s_lpc, s_nact);
   for (int i = tid; i < TILE * NA; i += THREADS_L) {
     const int s = i / NA, k = i % NA;
     s_ha[s * KPAD + k] = s < nvalid ? p.gru_a_in[(b0 + s) * NA + k] : 0.0f;
@@ -614,8 +756,15 @@ sample_l_kernel(const LpcnetFrameParams p) {
   const bool mine = tid < nvalid;
   const bool writer = mine && rank == 0;
   StreamState st = {{0u, 0u, 0u, 0u}, 0.0f, 0.0f, 0, 0, 0};
-  if (mine) load_stream(p, b0 + tid, forcing, st);
+  if (mine) load_stream(p, b0 + tid, tf_forcing, st);
+  // K5 'opt': RNG thread RNG_T0 + s draws stream s's thresholds
+  const int rng_s = tid - RNG_T0;
+  const bool rng_thread = T::PIPELINE && rng_s >= 0 && rng_s < TILE;
+  uint32_t rng[4] = {0u, 0u, 0u, 0u};
+  if (rng_thread && rng_s < nvalid) load_rng(p, b0 + rng_s, rng);
   __syncthreads();
+  // the thresholds of sample 0, read first after the loop's barriers
+  if (rng_thread) draw_thresholds(rng, s_logit, s_thr + rng_s * 8);
   cluster.sync();   // barriers initialised and every CTA running
 
   PhaseClock<PROF> clk;
@@ -631,13 +780,21 @@ sample_l_kernel(const LpcnetFrameParams p) {
       mbar_arrive_expect_tx(bar_p, p_bytes);
     }
 
+    // this sample's thresholds: K5 'opt' alternates two buffers
+    float* thr = s_thr + (T::PIPELINE ? (i & 1) * TILE * 8 : 0);
+
     // A. prediction, mu-law inputs, thresholds (stream threads)
     if (stream_thread)
-      phase_a(tid, advance, s_sig, s_lpc, s_logit, s_idx, s_thr, st);
+      phase_a<KIND>(tid, advance, s_sig, s_lpc, s_logit, s_idx, thr, st);
     __syncthreads();
     clk.stamp(0);
 
-    // B. GRU-A
+    // B. GRU-A. K5 'opt': meanwhile the RNG threads draw the next sample's
+    // thresholds into the other buffer, last read in phase H of sample
+    // i - 1, before the barrier above
+    if (rng_thread && i + 1 < ns)
+      draw_thresholds(rng, s_logit,
+                      s_thr + ((i + 1) & 1) * TILE * 8 + rng_s * 8);
     if (gru_thread) {
       // the table rows of the epilogue are fetched first, so that their
       // latency passes under the loop
@@ -664,7 +821,8 @@ sample_l_kernel(const LpcnetFrameParams p) {
       for (int k = 4; k < NA; k += 4)
         gru_a_quad<false>(w0, w1, w2, h0, h1, k, acc);
       clk.stamp(1);
-      // the epilogue of gru_a_update, term for term
+      // the GRU-A epilogue in the plain version's order: ((cond_a + sig)
+      // + pred) + exc, then the gates (sample_scan.sample_step)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const float z = sigmoidf(zrh[e][0] + (acc[e][0] + bra[0]));
@@ -721,13 +879,15 @@ sample_l_kernel(const LpcnetFrameParams p) {
     clk.stamp(4);
 
     // F. dual-FC logits
-    dual_fc<THREADS_L>(s_hb, s_dfc_w, s_dfc_b, s_dfc_f, s_logits, tid);
-    __syncthreads();
+    if (T::TAIL) {
+      dual_fc<THREADS_L>(s_hb, s_dfc_w, s_dfc_b, s_dfc_f, s_logits, tid);
+      __syncthreads();
+    }
     clk.stamp(5);
 
     // G. flat sampler
-    if (FLAT) {
-      flat_compare<THREADS_L>(s_thr, s_logits, s_cmp, tid);
+    if (T::TAIL && FLAT) {
+      flat_compare<THREADS_L>(thr, s_logits, s_cmp, tid);
       __syncthreads();
       flat_pick<THREADS_L>(s_cmp, s_exc, tid);
       __syncthreads();
@@ -740,8 +900,8 @@ sample_l_kernel(const LpcnetFrameParams p) {
     // this CTA's s_ha or s_part again only after this CTA has sent its
     // next states.
     if (stream_thread)
-      phase_h<FLAT>(p, b0 + tid, tid, i, advance, forcing, mine, writer,
-                    s_sig, s_logits, s_thr, s_exc, s_u2l, st);
+      phase_h<KIND, FLAT>(p, b0 + tid, tid, i, advance, forcing, mine,
+                          writer, s_sig, s_logits, thr, s_exc, s_u2l, st);
     clk.stamp(7);
   }
   clk.finish(p.prof, ns);
@@ -755,7 +915,8 @@ sample_l_kernel(const LpcnetFrameParams p) {
   if (rank == 0) {
     if (tid < TILE * NB && tid / NB < nvalid)
       p.gru_b_out[b0 * NB + tid] = s_hb[tid];
-    if (writer) store_stream(p, b0 + tid, s_sig + tid * ORDER, st);
+    if (writer) store_stream<KIND>(p, b0 + tid, s_sig + tid * ORDER, st);
+    if (rng_thread && rng_s < nvalid) store_rng(p, b0 + rng_s, rng);
   }
   __syncwarp();
   cluster.sync();   // no CTA leaves while its stores to a peer may fly
@@ -795,9 +956,10 @@ __device__ __forceinline__ void gru_a_chunk(const float* rows,
 }
 
 // ---- plan T: one CTA per tile, clusters of 2 sharing wr_a's chunks
-template <bool FLAT, bool TF, bool PROF>
+template <int KIND, bool FLAT, bool PROF>
 __global__ void __launch_bounds__(THREADS_T, 1)
 sample_t_kernel(const LpcnetFrameParams p) {
+  using T = Traits<KIND>;
   extern __shared__ __align__(128) float smem[];
   float* s_wi_b = smem + OFF_WI_B;
   float* s_wr_b = smem + OFF_WR_B;
@@ -814,7 +976,7 @@ sample_t_kernel(const LpcnetFrameParams p) {
   float* s_rec_b = smem + OFF_REC_B;
   float* s_hb = smem + OFF_HB;          // [stream][unit]
   float* s_logits = smem + OFF_LOGITS;  // [stream][class]
-  float* s_thr = smem + OFF_THR;        // [stream][level]
+  float* s_thr = smem + OFF_THR;        // [buffer][stream][level]
   float* s_sig = smem + OFF_SIG;        // [stream][lag]
   float* s_lpc = smem + OFF_LPC;        // [stream][coef]
   int* s_idx = reinterpret_cast<int*>(smem + OFF_IDX);
@@ -832,9 +994,10 @@ sample_t_kernel(const LpcnetFrameParams p) {
   const int tid = threadIdx.x;
   const int b0 = blockIdx.x * TILE;
   const int nvalid = max(0, min(TILE, p.batch - b0));  // 0: a CTA that
-  const int ns = TF ? p.nsamples : FS;                 // only shares wr_a
-  const bool forcing = TF && p.target != nullptr;
-  const bool freezing = TF && p.n_active != nullptr;
+  const int ns = T::NS_ARG ? p.nsamples : FS;         // only shares wr_a
+  const bool tf_forcing = T::TF && p.target != nullptr;
+  const bool forcing = T::TEACH || tf_forcing;
+  const bool freezing = T::TF && p.n_active != nullptr;
 
   if (tid == 0) {
     for (int q = 0; q < RING_STAGES; ++q) {
@@ -844,9 +1007,9 @@ sample_t_kernel(const LpcnetFrameParams p) {
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   for (int i = tid; i < NA * G3B; i += THREADS_T) s_wi_b[i] = p.wi_b[i];
-  stage_tail(p, b0, nvalid, freezing, tid, THREADS_T, s_wr_b, s_br_b,
-             s_dfc_w, s_dfc_b, s_dfc_f, s_logit, s_cb, s_hb, s_sig, s_lpc,
-             s_nact);
+  stage_tail<KIND>(p, b0, nvalid, freezing, tid, THREADS_T, s_wr_b, s_br_b,
+                   s_dfc_w, s_dfc_b, s_dfc_f, s_logit, s_cb, s_hb, s_sig,
+                   s_lpc, s_nact);
   // GRU-A unit j = tid: its state and call condition stay in registers
   const int j = tid;
   float h_own[TILE], ca[TILE][3];
@@ -868,8 +1031,15 @@ sample_t_kernel(const LpcnetFrameParams p) {
   const bool stream_thread = tid < TILE;
   const bool writer = tid < nvalid;
   StreamState st = {{0u, 0u, 0u, 0u}, 0.0f, 0.0f, 0, 0, 0};
-  if (writer) load_stream(p, b0 + tid, forcing, st);
+  if (writer) load_stream(p, b0 + tid, tf_forcing, st);
+  // K5 'opt': RNG thread RNG_T0 + s draws stream s's thresholds
+  const int rng_s = tid - RNG_T0;
+  const bool rng_thread = T::PIPELINE && rng_s >= 0 && rng_s < TILE;
+  uint32_t rng[4] = {0u, 0u, 0u, 0u};
+  if (rng_thread && rng_s < nvalid) load_rng(p, b0 + rng_s, rng);
   __syncthreads();
+  // the thresholds of sample 0, read first after the loop's barriers
+  if (rng_thread) draw_thresholds(rng, s_logit, s_thr + rng_s * 8);
   cluster.sync();   // barriers initialised in both CTAs
 
   if (tid >= THREADS) {
@@ -900,9 +1070,12 @@ sample_t_kernel(const LpcnetFrameParams p) {
       const unsigned active = active_mask(freezing, i, s_nact);
       const bool advance = (active >> (tid & (TILE - 1))) & 1u;
 
+      // this sample's thresholds: K5 'opt' alternates two buffers
+      float* thr = s_thr + (T::PIPELINE ? (i & 1) * TILE * 8 : 0);
+
       // A. prediction, mu-law inputs, thresholds (stream threads)
       if (stream_thread)
-        phase_a(tid, advance, s_sig, s_lpc, s_logit, s_idx, s_thr, st);
+        phase_a<KIND>(tid, advance, s_sig, s_lpc, s_logit, s_idx, thr, st);
       consumer_sync();
       clk.stamp(0);
 
@@ -932,7 +1105,8 @@ sample_t_kernel(const LpcnetFrameParams p) {
         }
       }
       clk.stamp(1);
-      // the epilogue of gru_a_update, term for term
+      // the GRU-A epilogue in the plain version's order: ((cond_a + sig)
+      // + pred) + exc, then the gates (sample_scan.sample_step)
 #pragma unroll
       for (int s = 0; s < TILE; ++s) {
         const int* idx = s_idx + s * 4;
@@ -966,14 +1140,21 @@ sample_t_kernel(const LpcnetFrameParams p) {
       consumer_sync();
       clk.stamp(4);
 
-      // F. dual-FC logits
-      dual_fc<THREADS>(s_hb, s_dfc_w, s_dfc_b, s_dfc_f, s_logits, tid);
-      consumer_sync();
+      // F. dual-FC logits. K5 'opt': first the RNG threads, which have one
+      // round less, draw the next sample's thresholds into the other
+      // buffer, last read in phase H of sample i - 1
+      if (rng_thread && i + 1 < ns)
+        draw_thresholds(rng, s_logit,
+                        s_thr + ((i + 1) & 1) * TILE * 8 + rng_s * 8);
+      if (T::TAIL) {
+        dual_fc<THREADS>(s_hb, s_dfc_w, s_dfc_b, s_dfc_f, s_logits, tid);
+        consumer_sync();
+      }
       clk.stamp(5);
 
       // G. flat sampler
-      if (FLAT) {
-        flat_compare<THREADS>(s_thr, s_logits, s_cmp, tid);
+      if (T::TAIL && FLAT) {
+        flat_compare<THREADS>(thr, s_logits, s_cmp, tid);
         consumer_sync();
         flat_pick<THREADS>(s_cmp, s_exc, tid);
         consumer_sync();
@@ -982,8 +1163,8 @@ sample_t_kernel(const LpcnetFrameParams p) {
 
       // H. (stream threads) as in plan L
       if (stream_thread)
-        phase_h<FLAT>(p, b0 + tid, tid, i, advance, forcing, writer, writer,
-                      s_sig, s_logits, s_thr, s_exc, s_u2l, st);
+        phase_h<KIND, FLAT>(p, b0 + tid, tid, i, advance, forcing, writer,
+                            writer, s_sig, s_logits, thr, s_exc, s_u2l, st);
       clk.stamp(7);
     }
     clk.finish(p.prof, ns);
@@ -994,7 +1175,8 @@ sample_t_kernel(const LpcnetFrameParams p) {
       if (s < nvalid) p.gru_a_out[(b0 + s) * NA + j] = h_own[s];
     if (tid < TILE * NB && tid / NB < nvalid)
       p.gru_b_out[b0 * NB + tid] = s_hb[tid];
-    if (writer) store_stream(p, b0 + tid, s_sig + tid * ORDER, st);
+    if (writer) store_stream<KIND>(p, b0 + tid, s_sig + tid * ORDER, st);
+    if (rng_thread && rng_s < nvalid) store_rng(p, b0 + rng_s, rng);
   }
   // neither CTA leaves while the other may still arrive on its barriers
   cluster.sync();
@@ -1026,10 +1208,10 @@ inline cudaLaunchConfig_t cluster_config(int grid, int threads, size_t smem,
 // (cudaOccupancyMaxActiveClusters). The wrapper calls it for every
 // instance once per device, before any launch there, and keeps the least
 // count.
-template <bool FLAT, bool TF, bool PROF>
+template <int KIND, bool FLAT, bool PROF>
 cudaError_t prepare_plans(int* count) {
-  auto kernel_l = sample_l_kernel<FLAT, TF, PROF>;
-  auto kernel_t = sample_t_kernel<FLAT, TF, PROF>;
+  auto kernel_l = sample_l_kernel<KIND, FLAT, PROF>;
+  auto kernel_t = sample_t_kernel<KIND, FLAT, PROF>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel_l, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)L_SMEM_BYTES);
@@ -1056,7 +1238,7 @@ cudaError_t prepare_plans(int* count) {
 // count of co-resident plan-L clusters; the grid is checked here). A
 // plan-L grid with more clusters than that is refused: plan L never runs
 // in waves.
-template <bool FLAT, bool TF, bool PROF>
+template <int KIND, bool FLAT, bool PROF>
 cudaError_t launch_sample(const LpcnetFrameParams* p, int plan, int grid,
                           int clusters, cudaStream_t stream) {
   const int tiles = (p->batch + TILE - 1) / TILE;
@@ -1068,7 +1250,7 @@ cudaError_t launch_sample(const LpcnetFrameParams* p, int plan, int grid,
     if (tiles > clusters) return cudaErrorCooperativeLaunchTooLarge;
     cfg = cluster_config(grid, THREADS_L, L_SMEM_BYTES, CLUSTER_L, stream,
                          &attr);
-    err = cudaLaunchKernelEx(&cfg, sample_l_kernel<FLAT, TF, PROF>, *p);
+    err = cudaLaunchKernelEx(&cfg, sample_l_kernel<KIND, FLAT, PROF>, *p);
   } else {
     if (plan != PLAN_T
         || grid != (tiles + CLUSTER_T - 1) / CLUSTER_T * CLUSTER_T)
@@ -1077,7 +1259,7 @@ cudaError_t launch_sample(const LpcnetFrameParams* p, int plan, int grid,
       return cudaErrorMisalignedAddress;         // bulk copies need 16 B
     cfg = cluster_config(grid, THREADS_T, T_SMEM_BYTES, CLUSTER_T, stream,
                          &attr);
-    err = cudaLaunchKernelEx(&cfg, sample_t_kernel<FLAT, TF, PROF>, *p);
+    err = cudaLaunchKernelEx(&cfg, sample_t_kernel<KIND, FLAT, PROF>, *p);
   }
   return err != cudaSuccess ? err : cudaGetLastError();
 }

@@ -24,6 +24,8 @@
 
 #include "sample_loop.cuh"
 
+using lpcnet::FORCED;
+
 extern "C" {
 
 // Launches one call under `plan` (0: L, 1: T) with `grid` CTAs on
@@ -37,17 +39,17 @@ int lpcnet_synth_samples(const LpcnetFrameParams* p, int flat, int plan,
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(flat
-      ? lpcnet::launch_sample<true, true, false>(p, plan, grid, clusters, s)
-      : lpcnet::launch_sample<false, true, false>(p, plan, grid, clusters,
-                                                  s));
+      ? lpcnet::launch_sample<FORCED, true, false>(p, plan, grid, clusters, s)
+      : lpcnet::launch_sample<FORCED, false, false>(p, plan, grid, clusters,
+                                                    s));
 }
 
 // Readies both instances of this library on the current device and lowers
 // *count to the least number of plan-L clusters either runs at once.
 int lpcnet_prepare_plans(int* count) {
-  cudaError_t err = lpcnet::prepare_plans<true, true, false>(count);
+  cudaError_t err = lpcnet::prepare_plans<FORCED, true, false>(count);
   if (err == cudaSuccess)
-    err = lpcnet::prepare_plans<false, true, false>(count);
+    err = lpcnet::prepare_plans<FORCED, false, false>(count);
   return (int)err;
 }
 

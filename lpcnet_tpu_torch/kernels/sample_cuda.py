@@ -1,5 +1,6 @@
 """The sample kernels (csrc/sample_frame.cu, csrc/sample_frame_opt.cu,
-csrc/synth_samples.cu, csrc/teacher_advance.cu) bound to PyTorch: the
+csrc/synth_samples.cu, csrc/teacher_advance.cu, every one an instance of
+the sample loop of csrc/sample_loop.cuh) bound to PyTorch: the
 counterparts of synthesize_frame(s)_pallas, synth_samples_pallas and
 teacher_advance_pallas in lpcnet_tpu/kernels/sample_pallas.py.
 
@@ -11,17 +12,16 @@ the kernels: 'flat' / 'base' for the free-run frame kernel with either
 sampler, 'fuse' / 'opt' for the fused frame kernel, 'tf_flat' / 'tf_base'
 for synth_samples, 'teacher' for teacher_advance.
 
-The sample loop behind 'flat', 'base', 'tf_flat' and 'tf_base'
-(csrc/sample_loop.cuh) has two launch plans, which launch_plan picks from
-the batch and the card's count of co-resident 16-CTA clusters
-(max_clusters, queried once per device):
+The sample loop has two launch plans, which launch_plan picks from the
+batch and the card's count of co-resident 16-CTA clusters (max_clusters,
+queried once per device; the least over every instance):
   'L' (B <= 8 x that count): a cluster of 16 CTAs per tile of 8 streams,
       GRU-A's columns split over the cluster, each CTA's wr_a slice (from
       plan_operands, built once per tables dict) in shared memory;
   'T' (larger B): one CTA per 8 streams in clusters of 2, wr_a streamed
       through a shared-memory ring by multicast bulk copies.
-Both give the same bits. `plan_launches[plan]` counts the launches of the
-sample loop under each plan; `last_plan` is (plan, cluster size) of the
+Both give the same bits. `plan_launches[plan]` counts the launches of
+every kernel under each plan; `last_plan` is (plan, cluster size) of the
 last one. A plan-L launch beyond the card's cluster count is refused by
 the kernel's entry point and raises; nothing retries with the other plan.
 
@@ -110,42 +110,21 @@ class _Params(ctypes.Structure):
            ("prof", ctypes.c_void_p)])
 
 
-class _OptParams(ctypes.Structure):
-    """ctypes twin of LpcnetOptParams in csrc/sample_frame_opt.cu."""
-    _fields_ = (
-        [(n, ctypes.c_void_p) for n in ("cond_a", "cond_b", "lpc")]
-        + [(n, ctypes.c_longlong)
-           for n in ("ca_stride", "cb_stride", "lpc_stride")]
-        + [(n, ctypes.c_void_p) for n in ("tbl_cat",) + _WEIGHTS[3:] + (
-            "dfc_w12", "dfc_b12", "dfc_f", "logit_tbl") + _STATE_PTRS + (
-            "pcm",)]
-        + [("pcm_stride", ctypes.c_longlong), ("batch", ctypes.c_int),
-           ("preemph", ctypes.c_float)])
-
-
-class _TeacherParams(ctypes.Structure):
-    """ctypes twin of LpcnetTeacherParams in csrc/teacher_advance.cu."""
-    _fields_ = (
-        [(n, ctypes.c_void_p) for n in ("cond_a", "cond_b") + _WEIGHTS + (
-            "idx_sig", "idx_pred", "idx_exc", "gru_a_in", "gru_b_in",
-            "gru_a_out", "gru_b_out")]
-        + [("batch", ctypes.c_int), ("nsamples", ctypes.c_int)])
-
-
 _P, _I, _V = ctypes.POINTER, ctypes.c_int, ctypes.c_void_p
-# the argument types of every entry point
+# the argument types of every entry point: a launch takes the argument
+# block, (a variant switch,) plan, grid, cluster count and stream
+_LAUNCH = [_P(_Params), _I, _I, _I, _V]
+_SWITCHED = _LAUNCH[:1] + [_I] + _LAUNCH[1:]
+_PREPARE = {"lpcnet_prepare_plans": [_P(_I)]}
 _ENTRIES = {
-    "sample_frame": {"lpcnet_sample_frame": [_P(_Params), _I, _I, _I, _I,
-                                             _V],
-                     "lpcnet_sample_phases": [_P(_Params), _I, _I, _I, _V],
-                     "lpcnet_prepare_plans": [_P(_I)]},
-    "synth_samples": {"lpcnet_synth_samples": [_P(_Params), _I, _I, _I, _I,
-                                               _V],
-                      "lpcnet_prepare_plans": [_P(_I)]},
-    "sample_frame_opt": {"lpcnet_sample_frame_opt": [_P(_OptParams), _I,
-                                                     _V]},
-    "teacher_advance": {"lpcnet_teacher_advance": [_P(_TeacherParams), _V]},
+    "sample_frame": {"lpcnet_sample_frame": _SWITCHED,
+                     "lpcnet_sample_phases": _LAUNCH, **_PREPARE},
+    "synth_samples": {"lpcnet_synth_samples": _SWITCHED, **_PREPARE},
+    "sample_frame_opt": {"lpcnet_sample_frame_opt": _SWITCHED, **_PREPARE},
+    "teacher_advance": {"lpcnet_teacher_advance": _LAUNCH,
+                        "lpcnet_teacher_phases": _LAUNCH, **_PREPARE},
 }
+LIBRARIES = tuple(_ENTRIES)
 
 
 def _lib(name: str) -> ctypes.CDLL:
@@ -178,14 +157,16 @@ def _index(device: torch.device) -> int:
 def max_clusters(device: torch.device) -> int:
     """How many 16-CTA clusters of plan L the card runs at once: the least
     cudaOccupancyMaxActiveClusters over every instance of the sample loop
-    in both libraries. The first call on a device readies those kernels
-    there (lpcnet_prepare_plans), which every launch of the sample loop
+    in every library (their register counts differ). The first call on a
+    device builds the libraries that are not built yet, together, and
+    readies every kernel there (lpcnet_prepare_plans), which every launch
     needs. Raises if a query fails or gives 0."""
     index = _index(device)
     if index not in _max_clusters:
+        _build.build(LIBRARIES)
         n = ctypes.c_int(2 ** 31 - 1)
         with torch.cuda.device(index):
-            for name in ("sample_frame", "synth_samples"):
+            for name in LIBRARIES:
                 lib = _lib(name)
                 _raise_on(lib.lpcnet_prepare_plans(ctypes.byref(n)), lib,
                           "cluster occupancy query")
@@ -197,9 +178,9 @@ def max_clusters(device: torch.device) -> int:
 
 @contextlib.contextmanager
 def _plan_forced(device: torch.device, plan: str):
-    """For the card tests and chip_smoke.py: launches of the sample loop
-    inside take `plan`, through launch_plan's input, the cluster count
-    (the card's own for L, 0 for T)."""
+    """For the card tests and chip_smoke.py: every kernel launch inside
+    takes `plan`, through launch_plan's input, the cluster count (the
+    card's own for L, 0 for T)."""
     index, real = _index(device), max_clusters(device)
     _max_clusters[index] = real if plan == "L" else 0
     try:
@@ -284,44 +265,49 @@ def _state_ptrs(state, new) -> Dict[str, int]:
     return ptrs
 
 
-def _sample_params(tables, state, new, pcm, batch, nsamples, cfg) -> _Params:
-    """The argument block of the sample loop but for its conditions."""
-    dfc = tables["dual_fc"]
+def _sample_params(tables, state, new, pcm, batch, nsamples, cfg,
+                   cond=None) -> _Params:
+    """The argument block of the sample loop; pcm None: no output rows and
+    no dual-FC (K4). cond: one condition set (B, *), else the caller sets
+    the condition pointers."""
     wr_a_l = plan_operands(tables)["wr_a_l"]
     _check("wr_a_l", wr_a_l, (CLUSTER_L, 3 * UNITS_L, NA), torch.float32,
-           pcm.device)
+           tables["wr_a"].device)
     for name, t in (("wr_a", tables["wr_a"]), ("wr_a_l", wr_a_l)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    return _Params(
+    p = _Params(
         **{k: tables[k].data_ptr() for k in _WEIGHTS},
-        wr_a_l=wr_a_l.data_ptr(),
-        dfc_w=dfc["w"].data_ptr(), dfc_b=dfc["b"].data_ptr(),
-        dfc_f=dfc["factor"].data_ptr(),
-        logit_tbl=_logit_tbl(pcm.device).data_ptr(),
-        **_state_ptrs(state, new),
-        pcm=pcm.data_ptr(), pcm_stride=pcm.stride(0), batch=batch,
+        wr_a_l=wr_a_l.data_ptr(), **_state_ptrs(state, new), batch=batch,
         nsamples=nsamples, preemph=cfg.preemph)
+    if pcm is not None:
+        dfc = tables["dual_fc"]
+        p.dfc_w, p.dfc_b = dfc["w"].data_ptr(), dfc["b"].data_ptr()
+        p.dfc_f = dfc["factor"].data_ptr()
+        p.logit_tbl = _logit_tbl(pcm.device).data_ptr()
+        p.pcm, p.pcm_stride = pcm.data_ptr(), pcm.stride(0)
+    if cond is not None:
+        p.cond_a, p.ca_stride = cond["cond_a"].data_ptr(), 3 * NA
+        p.cond_b, p.cb_stride = cond["cond_b"].data_ptr(), 3 * NB
+        p.lpc, p.lpc_stride = cond["lpc"].data_ptr(), LPC_ORDER
+    return p
 
 
-def _opt_params(tables, state, new, pcm, batch, cfg) -> _OptParams:
-    """The argument block of the fused frame kernel but for its conditions;
-    the fused operands are built once per tables dict."""
+def _fuse_operands(p: _Params, tables, device) -> None:
+    """Points an argument block at the fused frame kernel's operands, built
+    once per tables dict (sample_scan.fused_operands): the three table
+    pointers at rows 0, NL and 2 * NL of tbl_cat, dfc_w at dfc_w12 (NB,
+    2 * NL) and dfc_b at dfc_b12 (2 * NL), which has dfc_b's layout."""
     fused = sample_scan.fused_operands(tables)
     f32 = torch.float32
-    _check("tbl_cat", fused["tbl_cat"], (3 * NL, 3 * NA), f32, pcm.device)
-    _check("dfc_w12", fused["dfc_w12"], (NB, 2 * NL), f32, pcm.device)
-    _check("dfc_b12", fused["dfc_b12"], (2 * NL,), f32, pcm.device)
-    return _OptParams(
-        tbl_cat=fused["tbl_cat"].data_ptr(),
-        **{k: tables[k].data_ptr() for k in _WEIGHTS[3:]},
-        dfc_w12=fused["dfc_w12"].data_ptr(),
-        dfc_b12=fused["dfc_b12"].data_ptr(),
-        dfc_f=tables["dual_fc"]["factor"].data_ptr(),
-        logit_tbl=_logit_tbl(pcm.device).data_ptr(),
-        **_state_ptrs(state, new),
-        pcm=pcm.data_ptr(), pcm_stride=pcm.stride(0), batch=batch,
-        preemph=cfg.preemph)
+    _check("tbl_cat", fused["tbl_cat"], (3 * NL, 3 * NA), f32, device)
+    _check("dfc_w12", fused["dfc_w12"], (NB, 2 * NL), f32, device)
+    _check("dfc_b12", fused["dfc_b12"], (2 * NL,), f32, device)
+    rows = fused["tbl_cat"].data_ptr()
+    table = NL * 3 * NA * fused["tbl_cat"].element_size()
+    p.tbl_sig, p.tbl_pred, p.tbl_exc = rows, rows + table, rows + 2 * table
+    p.dfc_w = fused["dfc_w12"].data_ptr()
+    p.dfc_b = fused["dfc_b12"].data_ptr()
 
 
 def _variant_flat(variant: str) -> bool:
@@ -368,17 +354,15 @@ def synthesize_frames(tables: Dict[str, Any], state: Dict[str, torch.Tensor],
                 torch.empty((B, 0), dtype=f32, device=device))
     new = {k: torch.empty_like(v) for k, v in state.items()}
     pcm = torch.empty((B, T * FRAME_SIZE), dtype=f32, device=device)
+    p = _sample_params(tables, state, new, pcm, B, FRAME_SIZE, cfg)
     if fused:
         lib = _lib("sample_frame_opt")
-        args = (int(variant == "opt"),)
-        launch, plan = lib.lpcnet_sample_frame_opt, None
-        p = _opt_params(tables, state, new, pcm, B, cfg)
+        launch, switch = lib.lpcnet_sample_frame_opt, variant == "opt"
+        _fuse_operands(p, tables, device)
     else:
         lib = _lib("sample_frame")
-        plan, grid, clusters = _plan(B, device)
-        args = (int(variant == "flat"), PLANS[plan], grid, clusters)
-        launch = lib.lpcnet_sample_frame
-        p = _sample_params(tables, state, new, pcm, B, FRAME_SIZE, cfg)
+        launch, switch = lib.lpcnet_sample_frame, variant == "flat"
+    plan, grid, clusters = _plan(B, device)
     p.ca_stride, p.cb_stride = T * 3 * NA, T * 3 * NB
     p.lpc_stride = T * LPC_ORDER
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -388,11 +372,11 @@ def synthesize_frames(tables: Dict[str, Any], state: Dict[str, torch.Tensor],
             p.cond_b = conds["cond_b"].data_ptr() + 4 * t * 3 * NB
             p.lpc = conds["lpc"].data_ptr() + 4 * t * LPC_ORDER
             p.pcm = pcm.data_ptr() + 4 * t * FRAME_SIZE
-            _raise_on(launch(ctypes.byref(p), *args, stream), lib,
+            _raise_on(launch(ctypes.byref(p), int(switch), PLANS[plan], grid,
+                             clusters, stream), lib,
                       f"sample_frame ({variant})")
             launches[variant] += 1
-            if plan is not None:
-                plan_launches[plan] += 1
+            plan_launches[plan] += 1
             # later frames update the new state in place
             p.gru_a_in, p.gru_b_in = p.gru_a_out, p.gru_b_out
             p.sig_in, p.exc_in = p.sig_out, p.exc_out
@@ -416,34 +400,44 @@ PHASES = ("A", "gru_a_loop", "gru_a_epilogue", "exchange", "gru_b",
 
 
 def phase_split(tables: Dict[str, Any], state: Dict[str, torch.Tensor],
-                cond: Dict[str, torch.Tensor], cfg) -> Dict[str, Any]:
-    """One free-run frame (flat sampler) through the instance of the frame
-    kernel that stamps the SM clock around each phase of the step on the
-    first CTA, under the plan launch_plan picks: us per step for each of
-    PHASES, the whole step, the SM clock, the plan. Counted in neither
-    `launches` nor `plan_launches`: a measurement, never the main path."""
+                cond: Dict[str, torch.Tensor], cfg,
+                target: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+    """One launch through the instance that stamps the SM clock around
+    each phase of the step on the first CTA, under the plan launch_plan
+    picks: the free-run frame (flat sampler), or with a target (B, ns) the
+    teacher advance (K4: its dual_fc and sampler phases are empty). Returns
+    us per step for each of PHASES, the whole step, the SM clock, the plan.
+    Counted in neither `launches` nor `plan_launches`: a measurement, never
+    the main path."""
     device = cond["cond_a"].device
     B = cond["cond_a"].shape[0]
     _check_cfg(cfg)
     _check_cond(cond, B, device)
-    _check_weights(tables, device)
+    _check_weights(tables, device, dual_fc=target is None)
     _check_state(state, B, device)
-    lib = _lib("sample_frame")
     clusters = max_clusters(device)
     plan, cluster, _, grid = launch_plan(B, clusters)
     new = {k: torch.empty_like(v) for k, v in state.items()}
-    pcm = torch.empty((B, FRAME_SIZE), dtype=torch.float32, device=device)
-    p = _sample_params(tables, state, new, pcm, B, FRAME_SIZE, cfg)
-    p.cond_a, p.ca_stride = cond["cond_a"].data_ptr(), 3 * NA
-    p.cond_b, p.cb_stride = cond["cond_b"].data_ptr(), 3 * NB
-    p.lpc, p.lpc_stride = cond["lpc"].data_ptr(), LPC_ORDER
+    if target is None:
+        lib = _lib("sample_frame")
+        entry = lib.lpcnet_sample_phases
+        pcm = torch.empty((B, FRAME_SIZE), dtype=torch.float32,
+                          device=device)
+        p = _sample_params(tables, state, new, pcm, B, FRAME_SIZE, cfg, cond)
+    else:
+        lib = _lib("teacher_advance")
+        entry = lib.lpcnet_teacher_phases
+        _check("target", target, (B, target.shape[-1]), torch.float32,
+               device)
+        p = _sample_params(tables, state, new, None, B, target.shape[1],
+                           cfg, cond)
+        p.target, p.tgt_stride = target.data_ptr(), target.shape[1]
     prof = torch.zeros(len(PHASES) + 3, dtype=torch.int64, device=device)
     p.prof = prof.data_ptr()
     with torch.cuda.device(device):
-        _raise_on(lib.lpcnet_sample_phases(
-            ctypes.byref(p), PLANS[plan], grid, clusters,
-            torch.cuda.current_stream(device).cuda_stream), lib,
-            "sample_frame (phases)")
+        _raise_on(entry(ctypes.byref(p), PLANS[plan], grid, clusters,
+                        torch.cuda.current_stream(device).cuda_stream), lib,
+                  "phase split")
     c = prof.cpu().tolist()
     cycles, ns, steps = c[len(PHASES):]
     out: Dict[str, Any] = {k: c[q] * ns / cycles / 1e3 / steps
@@ -512,10 +506,7 @@ def synth_samples(tables: Dict[str, Any], state: Dict[str, torch.Tensor],
     plan, grid, clusters = _plan(B, device)
     new = {k: torch.empty_like(v) for k, v in state.items()}
     pcm = torch.empty((B, nsamples), dtype=torch.float32, device=device)
-    p = _sample_params(tables, state, new, pcm, B, nsamples, cfg)
-    p.cond_a, p.ca_stride = cond["cond_a"].data_ptr(), 3 * NA
-    p.cond_b, p.cb_stride = cond["cond_b"].data_ptr(), 3 * NB
-    p.lpc, p.lpc_stride = cond["lpc"].data_ptr(), LPC_ORDER
+    p = _sample_params(tables, state, new, pcm, B, nsamples, cfg, cond)
     if target is not None:
         p.target, p.tgt_stride = target.data_ptr(), nsamples
         p.preload, p.force_from = preload.data_ptr(), force_from.data_ptr()
@@ -531,71 +522,42 @@ def synth_samples(tables: Dict[str, Any], state: Dict[str, torch.Tensor],
     return new, pcm
 
 
-def teacher_gru_advance(tables: Dict[str, Any], gru_a: torch.Tensor,
-                        gru_b: torch.Tensor, cond: Dict[str, torch.Tensor],
-                        seqs: Dict[str, torch.Tensor], cfg
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The two GRU recurrences over a forced segment in one launch (K4),
-    from the table indices seqs["lsu"], ["pu"], ["exc_prev"] ((B, ns) int32,
-    values in [0, 256)) of sample_scan.teacher_sequences. Returns the new
-    (gru_a, gru_b)."""
-    device = cond["cond_a"].device
-    if device.type == "cpu":
-        return sample_scan.teacher_gru_advance(tables, gru_a, gru_b, cond,
-                                               seqs, cfg)
-    if device.type != "cuda":
-        raise ValueError(f"no teacher-advance kernel for device {device}")
-    _check_cfg(cfg)
-    B = cond["cond_a"].shape[0]
-    f32 = torch.float32
-    _check("cond_a", cond["cond_a"], (B, 3 * NA), f32, device)
-    _check("cond_b", cond["cond_b"], (B, 3 * NB), f32, device)
-    _check_weights(tables, device, dual_fc=False)
-    _check("gru_a", gru_a, (B, NA), f32, device)
-    _check("gru_b", gru_b, (B, NB), f32, device)
-    ns = seqs["lsu"].shape[-1]
-    if ns == 0:
-        raise ValueError("the forced segment is empty")
-    idx = [seqs[k] for k in ("lsu", "pu", "exc_prev")]
-    for name, t in zip(("lsu", "pu", "exc_prev"), idx):
-        _check(name, t, (B, ns), torch.int32, device)
-
-    lib = _lib("teacher_advance")
-    new_a, new_b = torch.empty_like(gru_a), torch.empty_like(gru_b)
-    p = _TeacherParams(
-        cond_a=cond["cond_a"].data_ptr(), cond_b=cond["cond_b"].data_ptr(),
-        **{k: tables[k].data_ptr() for k in _WEIGHTS},
-        idx_sig=idx[0].data_ptr(), idx_pred=idx[1].data_ptr(),
-        idx_exc=idx[2].data_ptr(), gru_a_in=gru_a.data_ptr(),
-        gru_b_in=gru_b.data_ptr(), gru_a_out=new_a.data_ptr(),
-        gru_b_out=new_b.data_ptr(), batch=B, nsamples=ns)
-    with torch.cuda.device(device):
-        _raise_on(lib.lpcnet_teacher_advance(
-            ctypes.byref(p), torch.cuda.current_stream(device).cuda_stream),
-            lib, "teacher_advance")
-    launches["teacher"] += 1
-    return new_a, new_b
-
-
 def teacher_advance(tables: Dict[str, Any], state: Dict[str, torch.Tensor],
                     cond: Dict[str, torch.Tensor], cfg, target: torch.Tensor
                     ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-    """State advance over a fully teacher-forced segment: the arguments and
-    the result of sample_scan.teacher_advance. The table indices, the
-    non-GRU state and the RNG advance are PyTorch operations on the
-    tensors' device; the two GRU recurrences are one K4 launch on a CUDA
-    device.
+    """State advance over a fully teacher-forced segment in one launch
+    (K4): the arguments and the result of sample_scan.teacher_advance, which
+    runs instead for tensors on the CPU. The kernel computes the table
+    indices, the non-GRU state and the RNG advance in its loop.
 
     cond: cond_a (B,3Na), cond_b (B,3Nb), lpc (B,16); target (B, ns)
     float32. Returns (new_state, target)."""
     device = cond["cond_a"].device
-    if device.type == "cuda":
-        B = cond["cond_a"].shape[0]
-        if target.dim() != 2 or target.shape[1] == 0:
-            raise ValueError("target must be (B, ns) with ns > 0, not "
-                             f"{tuple(target.shape)}")
-        _check_cond(cond, B, device)
-        _check("target", target, (B, target.shape[1]), torch.float32, device)
-        _check_state(state, B, device)
-    return sample_scan.teacher_advance(tables, state, cond, cfg, target,
-                                       gru_advance=teacher_gru_advance)
+    if device.type == "cpu":
+        return sample_scan.teacher_advance(tables, state, cond, cfg, target)
+    if device.type != "cuda":
+        raise ValueError(f"no teacher-advance kernel for device {device}")
+    _check_cfg(cfg)
+    B = cond["cond_a"].shape[0]
+    if target.dim() != 2 or target.shape[1] == 0:
+        raise ValueError("target must be (B, ns) with ns > 0, not "
+                         f"{tuple(target.shape)}")
+    ns = target.shape[1]
+    _check_cond(cond, B, device)
+    _check("target", target, (B, ns), torch.float32, device)
+    _check_weights(tables, device, dual_fc=False)
+    _check_state(state, B, device)
+
+    lib = _lib("teacher_advance")
+    plan, grid, clusters = _plan(B, device)
+    new = {k: torch.empty_like(v) for k, v in state.items()}
+    p = _sample_params(tables, state, new, None, B, ns, cfg, cond)
+    p.target, p.tgt_stride = target.data_ptr(), ns
+    with torch.cuda.device(device):
+        _raise_on(lib.lpcnet_teacher_advance(
+            ctypes.byref(p), PLANS[plan], grid, clusters,
+            torch.cuda.current_stream(device).cuda_stream),
+            lib, "teacher_advance")
+    launches["teacher"] += 1
+    plan_launches[plan] += 1
+    return new, target

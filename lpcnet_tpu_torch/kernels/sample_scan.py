@@ -359,20 +359,20 @@ def teacher_gru_advance(tables: Dict[str, Any], gru_a: torch.Tensor,
 
 
 def teacher_advance(tables: Dict[str, Any], state: Dict[str, torch.Tensor],
-                    cond: Dict[str, torch.Tensor], cfg, target: torch.Tensor,
-                    gru_advance=teacher_gru_advance
+                    cond: Dict[str, torch.Tensor], cfg, target: torch.Tensor
                     ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """State advance over a FULLY teacher-forced segment without the
     sample loop: what synth_samples(..., target=target) leaves as state,
     bit for bit, with only the two GRU recurrences run per sample (no
-    dual-FC, no sampler; the forced output is the target itself).
+    dual-FC, no sampler; the forced output is the target itself). The plain
+    version of csrc/teacher_advance.cu, which computes all of it in one
+    launch.
 
     cond: cond_a (B,3Na), cond_b (B,3Nb), lpc (B,16); target (B, ns).
-    gru_advance: what runs the recurrences (the CUDA wrapper passes its
-    kernel launch). Returns (new_state, target)."""
+    Returns (new_state, target)."""
     seqs = teacher_sequences(state, cond, cfg, target)
-    gru_a, gru_b = gru_advance(tables, state["gru_a"], state["gru_b"], cond,
-                               seqs, cfg)
+    gru_a, gru_b = teacher_gru_advance(tables, state["gru_a"],
+                                       state["gru_b"], cond, seqs, cfg)
     return {"gru_a": gru_a, "gru_b": gru_b, "last_sig": seqs["last_sig"],
             "last_exc": seqs["last_exc"], "deemph": seqs["deemph"],
             "rng": kiss99.kiss99_advance(state["rng"],

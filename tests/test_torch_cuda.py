@@ -133,24 +133,32 @@ def test_kernel_bit_identical_to_plain(card, variant, plan, batch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["fuse", "opt"])
-@pytest.mark.parametrize("batch", [1, 13])
-def test_fused_kernel_bit_identical_to_plain_and_base(card, variant, batch):
-    """K5 over 2 frames: pcm and every state leaf equal to its plain
-    version's (synthesize_frames_opt) and to the walked-tree kernel's on
-    the same inputs; a ragged last tile (13 streams) included."""
+@pytest.mark.parametrize("plan,batch", PLAN_CASES, ids=PLAN_IDS)
+def test_fused_kernel_bit_identical_to_plain_and_base(card, variant, plan,
+                                                      batch):
+    """K5 over 2 frames under either plan: pcm and every state leaf equal to
+    its plain version's (synthesize_frames_opt) and to the walked-tree
+    kernel's (K2) on the same inputs under the same plan; ragged tiles and
+    plan L's largest batch included."""
+    batch = _batch(card, batch)
     voc, conds, state, _ = _setup(card, batch, "base", warm=False)
-    conds = {k: conds[k].contiguous() for k in ("cond_a", "cond_b", "lpc")}
     before = dict(sample_cuda.launches)
-    st_k, pcm_k = sample_cuda.synthesize_frames(voc.tables, state, conds,
-                                                voc.cfg, variant=variant)
-    torch.cuda.synchronize()
-    after = dict(sample_cuda.launches)
-    assert after.pop(variant) == before.pop(variant) + 2
-    assert after == before
-    st_p, pcm_p = sample_scan.synthesize_frames_opt(
-        voc.tables, state, conds, voc.cfg, pipeline_thr=variant == "opt")
-    st_b, pcm_b = sample_cuda.synthesize_frames(voc.tables, state, conds,
-                                                voc.cfg, variant="base")
+    plans_before = dict(sample_cuda.plan_launches)
+    with sample_cuda._plan_forced(card, plan):
+        st_k, pcm_k = sample_cuda.synthesize_frames(voc.tables, state, conds,
+                                                    voc.cfg, variant=variant)
+        torch.cuda.synchronize()
+        assert sample_cuda.last_plan[0] == plan
+        after = dict(sample_cuda.launches)
+        assert after.pop(variant) == before.pop(variant) + 2
+        assert after == before
+        assert sample_cuda.plan_launches[plan] == plans_before[plan] + 2
+        st_b, pcm_b = sample_cuda.synthesize_frames(voc.tables, state, conds,
+                                                    voc.cfg, variant="base")
+    st_p, pcm_p = _plain_once(
+        ("fused", variant, batch),
+        lambda: sample_scan.synthesize_frames_opt(
+            voc.tables, state, conds, voc.cfg, pipeline_thr=variant == "opt"))
     assert pcm_k.shape == (batch, 320)
     assert torch.equal(pcm_k, pcm_p) and torch.equal(pcm_k, pcm_b)
     for k in st_p:
@@ -191,53 +199,50 @@ def test_synth_samples_bit_identical_to_plain(card, flags, ns, plan, batch,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch", [1, 13])
-def test_teacher_advance_bit_identical_to_plain_and_forced_k3(card, batch):
-    """K4 against its plain version and against a fully forced K3 launch:
-    every state leaf equal."""
+@pytest.mark.parametrize("plan,batch", PLAN_CASES, ids=PLAN_IDS)
+@pytest.mark.parametrize("ns", [80, 160])
+def test_teacher_advance_bit_identical_to_plain_and_forced_k3(card, ns, plan,
+                                                              batch):
+    """K4 under either plan, one launch: all six state fields equal to its
+    plain version's (sample_scan.teacher_advance: teacher_sequences, the
+    GRU recurrences, the KISS99 jump) and to a fully forced K3 launch's
+    under the same plan."""
+    batch = _batch(card, batch)
     voc, _, state, cond = _setup(card, batch)
-    ns, kw = _flag_args("target", batch, card)
-    before = sample_cuda.launches["teacher"]
-    st_k, out = sample_cuda.teacher_advance(voc.tables, state, cond, voc.cfg,
-                                            kw["target"])
-    torch.cuda.synchronize()
-    assert sample_cuda.launches["teacher"] == before + 1
+    _, kw = _flag_args("target", batch, card, ns=ns)
+    before = dict(sample_cuda.launches)
+    plans_before = dict(sample_cuda.plan_launches)
+    with sample_cuda._plan_forced(card, plan):
+        st_k, out = sample_cuda.teacher_advance(voc.tables, state, cond,
+                                                voc.cfg, kw["target"])
+        torch.cuda.synchronize()
+        assert sample_cuda.last_plan[0] == plan
+        after = dict(sample_cuda.launches)
+        assert after.pop("teacher") == before.pop("teacher") + 1
+        assert after == before
+        assert sample_cuda.plan_launches[plan] == plans_before[plan] + 1
+        st_3, pcm_3 = sample_cuda.synth_samples(voc.tables, state, cond,
+                                                voc.cfg, ns,
+                                                target=kw["target"])
     assert out is kw["target"]
-    st_p, _ = sample_scan.teacher_advance(voc.tables, state, cond, voc.cfg,
-                                          kw["target"])
-    st_3, pcm_3 = sample_cuda.synth_samples(voc.tables, state, cond, voc.cfg,
-                                            ns, target=kw["target"])
     assert torch.equal(pcm_3, kw["target"])
+    st_p, _ = _plain_once(
+        ("teacher", ns, batch),
+        lambda: sample_scan.teacher_advance(voc.tables, state, cond, voc.cfg,
+                                            kw["target"]))
+    assert set(st_k) == set(st_p) == {"gru_a", "gru_b", "last_sig",
+                                      "last_exc", "deemph", "rng"}
     for k in st_p:
         assert torch.equal(st_k[k], st_p[k]), k
         assert torch.equal(st_k[k], st_3[k]), k
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("plan", ["L", "T"])
-def test_teacher_advance_equals_forced_k3_under_each_plan(card, plan):
-    """K4 leaves the bits of a fully forced K3 launch under either plan."""
-    voc, _, state, cond = _setup(card, 9)
-    ns, kw = _flag_args("target", 9, card)
-    st_4, _ = sample_cuda.teacher_advance(voc.tables, state, cond, voc.cfg,
-                                          kw["target"])
-    with sample_cuda._plan_forced(card, plan):
-        st_3, pcm_3 = sample_cuda.synth_samples(voc.tables, state, cond,
-                                                voc.cfg, ns,
-                                                target=kw["target"])
-    torch.cuda.synchronize()
-    assert sample_cuda.last_plan[0] == plan
-    assert torch.equal(pcm_3, kw["target"])
-    for k in st_3:
-        assert torch.equal(st_4[k], st_3[k]), k
-
-
-@pytest.mark.cuda
 def test_plan_l_over_the_cluster_count_raises(card, monkeypatch):
     """A plan-L launch with more tiles than the card runs clusters at once
-    (here from a launch_plan that ignores the count) is refused by the
-    kernel's entry point, not run in waves, and nothing retries it under
-    plan T."""
+    (here from a launch_plan that ignores the count) is refused by every
+    kernel's entry point (K1/K2, K3, K5 'fuse' and 'opt', K4), not run in
+    waves, and nothing retries it under plan T."""
     real = sample_cuda.max_clusters(card)
     batch = 8 * real + 1
     voc, _, state, cond = _setup(card, batch, warm=False)
@@ -246,11 +251,16 @@ def test_plan_l_over_the_cluster_count_raises(card, monkeypatch):
     monkeypatch.setattr(sample_cuda, "launch_plan", lambda b, n: (
         "L", sample_cuda.CLUSTER_L, sample_cuda.TILE,
         tiles * sample_cuda.CLUSTER_L))
+    target = torch.zeros((batch, 80), device=card)
+    frame = (voc.tables, state, cond["cond_a"], cond["cond_b"], cond["lpc"],
+             voc.cfg)
     for call in (lambda: sample_cuda.synth_samples(voc.tables, state, cond,
                                                    voc.cfg, 80),
-                 lambda: sample_cuda.synthesize_frame(
-                     voc.tables, state, cond["cond_a"], cond["cond_b"],
-                     cond["lpc"], voc.cfg)):
+                 lambda: sample_cuda.synthesize_frame(*frame),
+                 lambda: sample_cuda.synthesize_frame(*frame, variant="fuse"),
+                 lambda: sample_cuda.synthesize_frame(*frame, variant="opt"),
+                 lambda: sample_cuda.teacher_advance(voc.tables, state, cond,
+                                                     voc.cfg, target)):
         with pytest.raises(RuntimeError, match="launch failed"):
             call()
     assert sample_cuda.plan_launches == before

@@ -1,8 +1,9 @@
 """The sample loop's launch plans and their operands, on the CPU: which CTA
-serves which streams (launch_plan), the repacked wr_a of plan L, each
-plan's shared-memory layout against the card's limit, and the ctypes twin
-of the kernels' argument block against the header that defines it. The
-kernels themselves run only on the card (tests/test_torch_cuda.py)."""
+serves which streams (launch_plan), the repacked wr_a of plan L, the fused
+dual-FC weight's staging map of K5, each plan's shared-memory layout
+against the card's limit, and the ctypes twin of the kernels' argument
+block against the header that defines it. The kernels themselves run only
+on the card (tests/test_torch_cuda.py)."""
 import ctypes
 import os
 import re
@@ -11,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from lpcnet_tpu_torch.kernels import sample_cuda
+from lpcnet_tpu_torch.kernels import sample_cuda, sample_scan
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "lpcnet_tpu_torch", "csrc")
@@ -86,6 +87,22 @@ def test_repacked_wr_a_reassembles_exactly():
     assert torch.equal(back, wr_a)
 
 
+# the instances of the sample loop (enum Kind of csrc/sample_loop.cuh) and
+# the buffers of the shared layout each one uses beyond the GRUs': the
+# dual-FC weights and the logit tables, the logits, how many threshold
+# buffers, the flat sampler's compare bytes
+KINDS = {"FRAME": (True, True, 1, True), "FORCED": (True, True, 1, True),
+         "FUSE": (True, True, 1, False), "OPT": (True, True, 2, False),
+         "TEACHER": (False, False, 0, False)}
+
+
+def _tail_bytes(kind):
+    """The tail's buffers that `kind` uses, in bytes."""
+    dfc, logits, thr, cmp_ = KINDS[kind]
+    return ((2 * NB * NL + 4 * NL + 2 * NL) * 4 * dfc + TILE * NL * 4 * logits
+            + thr * TILE * 8 * 4 + TILE * NL * cmp_)
+
+
 def _plan_l_bytes():
     """Plan L's shared memory per CTA, buffer by buffer
     (csrc/sample_loop.cuh)."""
@@ -98,31 +115,60 @@ def _plan_l_bytes():
               + 2 * NL                   # logit and ULAW2LIN tables
               + KPART * TILE * G3B       # slice partials
               + 3 * TILE * G3B + TILE * NB   # GRU-B cb, zrh, rec, h
-              + TILE * NL + TILE * 8 + 2 * TILE * ORDER
+              + TILE * NL + 2 * TILE * 8     # logits, thresholds [2]
+              + 2 * TILE * ORDER
               + TILE * 4 + 2 * TILE)     # indices, exc, active counts
     return floats * 4 + TILE * NL + 4 * 8   # compares, 3 mbarriers + pad
 
 
 def _plan_t_bytes():
     """Plan T's: the tile layout, the ring, its mbarriers."""
-    tile = (NA * G3B + NB * G3B + G3B + 2 * NB * NL + 4 * NL + 2 * NL + NA * TILE
-            + KPART * TILE * G3B + 3 * TILE * G3B + TILE * NB + TILE * NL
-            + TILE * 8 + 2 * TILE * ORDER + TILE * 4 + 2 * TILE) * 4 \
-        + TILE * NL
+    tile = (NA * G3B + NB * G3B + G3B + 2 * NB * NL + 4 * NL + 2 * NL
+            + NA * TILE + KPART * TILE * G3B + 3 * TILE * G3B + TILE * NB
+            + TILE * NL + 2 * TILE * 8 + 2 * TILE * ORDER + TILE * 4
+            + 2 * TILE) * 4 + TILE * NL
     rows, stages = 4, 4
     return tile + stages * rows * G3A * 4 + 2 * stages * 8
 
 
+@pytest.mark.parametrize("kind", list(KINDS))
 @pytest.mark.parametrize("plan,mirror", [("L", _plan_l_bytes),
                                          ("T", _plan_t_bytes)])
-def test_shared_memory_layout_fits_one_block(plan, mirror):
+def test_shared_memory_layout_fits_one_block(plan, mirror, kind):
     """Each plan's layout, summed here buffer by buffer, is what the
-    header's static_assert states and fits the 232,448 B of one block."""
+    header's static_assert states and fits the 232,448 B of one block;
+    every instance takes its plan's one layout, which holds the tail's
+    buffers that instance uses (K5 'opt' the second threshold buffer, K4
+    none)."""
     src = _header("sample_loop.cuh")
     stated = int(re.search(rf"static_assert\({plan}_SMEM_BYTES == (\d+)",
                            src).group(1))
     assert mirror() == stated
     assert stated <= SMEM_LIMIT
+    assert re.search(rf"\b{kind} = \d+,", src), kind
+    full = _tail_bytes("OPT") + TILE * NL         # every tail buffer
+    assert mirror() - full + _tail_bytes(kind) <= stated
+
+
+def test_fused_dual_fc_staging_reassembles_dfc_w():
+    """The index map by which the fused instances stage dfc_w12 (NB, 2*NL)
+    = [w1 | w2] into the (2, NB, NL) layout the loop reads (fused_dfc_src
+    of the header, evaluated here) gives back dfc_w exactly, element by
+    element, from the operands sample_scan.fused_operands builds."""
+    src = _header("sample_loop.cuh")
+    expr = re.search(r"constexpr int fused_dfc_src\(int i\) \{\s*return "
+                     r"(.*?);\s*\}", src, re.S).group(1)
+    expr = " ".join(expr.split()).replace("/", "//")   # C int division
+    rs = np.random.RandomState(1)
+    w = torch.as_tensor(rs.randn(2, NB, NL).astype(np.float32))
+    tables = {"dual_fc": {"w": w, "b": torch.zeros(2, NL)},
+              **{k: torch.zeros(NL, G3A)
+                 for k in ("tbl_sig", "tbl_pred", "tbl_exc")}}
+    w12 = sample_scan.fused_operands(tables)["dfc_w12"].reshape(-1)
+    idx = np.array([eval(expr, {"NB": NB, "NL": NL, "i": i})
+                    for i in range(2 * NB * NL)])
+    assert np.array_equal(np.sort(idx), np.arange(2 * NB * NL))
+    assert torch.equal(w12[torch.as_tensor(idx)].reshape(2, NB, NL), w)
 
 
 _CTYPES = {"float*": ctypes.c_void_p, "int*": ctypes.c_void_p,
@@ -131,9 +177,20 @@ _CTYPES = {"float*": ctypes.c_void_p, "int*": ctypes.c_void_p,
            "int": ctypes.c_int, "float": ctypes.c_float}
 
 
-def test_params_twin_matches_the_header():
-    """_Params has the fields of LpcnetFrameParams in the header's order
+@pytest.mark.parametrize("library", sample_cuda.LIBRARIES)
+def test_params_twin_matches_the_header(library):
+    """Every launch entry of each library takes the one argument block,
+    and _Params has the fields of LpcnetFrameParams in the header's order
     and types, so every offset and the size agree with the C layout."""
+    source = _header(library + ".cu")
+    entries = sample_cuda._ENTRIES[library]
+    for fn in re.findall(r"^int (lpcnet_\w+)\(", source, re.M):
+        assert fn in entries, fn
+        if fn != "lpcnet_prepare_plans":
+            assert re.search(rf"int {fn}\(const LpcnetFrameParams\* p,",
+                             source), fn
+            assert entries[fn][0] is ctypes.POINTER(sample_cuda._Params)
+    assert "struct" not in source
     body = re.search(r"struct LpcnetFrameParams \{(.*?)\n\};",
                      _header("lpcnet_sample.cuh"), re.S).group(1)
     fields = []

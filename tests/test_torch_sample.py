@@ -302,6 +302,28 @@ def test_teacher_advance_matches_jax(warm, batch):
         assert torch.equal(st_t[k], st_f[k]), k
 
 
+@pytest.mark.parametrize("batch", [2, 4])
+def test_plain_teacher_advance_equals_forced_synth_samples(warm, batch):
+    """The identity the K4 kernel rests on (csrc/teacher_advance.cu runs the
+    sample loop's forced step without its tail): the plain teacher_advance
+    (teacher_sequences, the GRU recurrences, the KISS99 jump) leaves every
+    state field of the plain fully forced synth_samples, bit for bit, at
+    full width, on a warmed state."""
+    _, tables, st, _, tcond = warm
+    ns, kw = _flag_args("target", batch)
+    state = _to_torch_state(_rows(st, batch))
+    tcond = _rows(tcond, batch)
+    tgt = torch.as_tensor(kw["target"])
+    st_t, out = t_scan.teacher_advance(tables, state, tcond, CFG_T, tgt)
+    st_f, pcm_f = t_scan.synth_samples(tables, state, tcond, CFG_T, ns,
+                                       target=tgt)
+    assert out is tgt and torch.equal(pcm_f, tgt)
+    assert set(st_t) == set(st_f) == {"gru_a", "gru_b", "last_sig",
+                                      "last_exc", "deemph", "rng"}
+    for k in st_f:
+        assert torch.equal(st_t[k], st_f[k]), k
+
+
 def test_sliced_dot_names_the_width_it_needs():
     with pytest.raises(ValueError, match="multiple"):
         t_scan.sliced_dot(torch.zeros((1, 64)), torch.zeros((64, 48)))
