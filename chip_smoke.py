@@ -22,7 +22,7 @@ Phases, each fatal on failure:
                at B=1 and the boundary, T at B=1024) or the run fails.
                Each run is then held
                against its plain PyTorch version (kernels/sample_scan.py)
-               on the card, on the run's own state and the first 2 frames
+               on the card, on the run's own state and the first frame
                of its own conditions, with the gates of
                lpcnet_tpu/verify.py: rng exact, pcm exact fraction >= 0.95,
                correlation >= 0.999; the run's pcm must be the kernel's on
@@ -30,6 +30,31 @@ Phases, each fatal on failure:
                and fuse and opt the bits of the base kernel on the same
                inputs (pcm, exc, rng and the GRU states). Kernel times by
                CUDA events.
+  2b. bf16  - Synthesizer(variant=..., tables="bf16").synthesize, each of
+               the four frame variants, B=1024 x 1 frame of the golden
+               features (plan T; launches counted under <variant>_bf16
+               alone), then the bf16 instance of K1, K2 and K5 under plan L
+               at B=1 and the boundary and plan T at B=1024 on the run's
+               first streams: pcm, exc, rng and both GRU states equal to
+               the plain loop's on the same bf16 tables and to the float32
+               instance's on the tables widened, exactly; each bf16
+               instance timed beside its float32 one (CUDA events).
+  2c. codec  - the 1.6 kb/s codec end to end through the steps of the
+               `encode` and `decode` commands: tests/golden/speech.s16
+               (50 packets) at B=1 and, each stream rotated by 37 samples
+               more, at B=1024: superframe features with quantized pitch
+               and encode_superframes per 64-frame chunk, decode_packets,
+               then Synthesizer.synthesize over the decoded features in
+               64-frame calls with tables="f32" and with tables="bf16":
+               one K1 launch per frame, of the flat_bf16 instance in the
+               bf16 runs, and nothing else. The card's packets are held
+               against the port's own encode on the CPU (B=1 and four of
+               the 1024 streams) with the JAX-vs-C codec gates: whole
+               packets >= 0.90, bytes >= 0.95; the decoded features
+               against the CPU decode to 1e-5; each synthesis run against
+               the plain loop as in phase 2. [codec] lines: encode ms per
+               packet, decode ms, synthesis ms per frame (host clock,
+               synchronised).
   3. plc     - PLCEngine(...).run with the shipped vocoder and PLC weights
                on the golden speech tiled over the streams, per-stream loss
                flags (20%, runs of 1-3 frames): B=1024 x 50 frames and B=1
@@ -80,8 +105,9 @@ Phases, each fatal on failure:
                names and thresholds, the fused variants against base, and
                a 3-frame strict run through the kernels against the same
                engine through the plain loops.
-It prints one JSON line of per-kernel numbers, the card's name and power
-limit, and last {"ok": true, "device": {...}}. Without a CUDA device, or
+A [clock] line says when each phase starts. It prints one JSON line of
+per-kernel numbers, the card's name and power limit, and last
+{"ok": true, "device": {...}}. Without a CUDA device, or
 without the lpcnet_tpu_torch package beside it, it exits non-zero before
 printing any result.
 """
@@ -123,8 +149,13 @@ VERIFY_STRICT_FRAMES = 3
 STRICT_LAUNCHES = ((("target", "preload", "n_active"), 160, 4),
                    (("n_active",), 80, 3),
                    (("target", "preload", "n_active"), 80, 1))
+CODEC_BATCHES = (1, 1024)   # streams of the codec phase
+CODEC_CPU_ROWS = (0, 1, 511, 1023)  # streams the CPU encode repeats
+CODEC_GATE_PACKETS, CODEC_GATE_BYTES = 0.90, 0.95
+CODEC_ROTATE = 37      # samples each codec stream is rotated by, per stream
+CHUNK_FRAMES = 64      # frames per call of the encode and decode commands
 BOUNDARY_FRAMES = 10   # frames of the synthesis run at the plan boundary
-GATE_FRAMES = 2     # frames of each synthesis run held against the plain one
+GATE_FRAMES = 1     # frames of each synthesis run held against the plain one
 TIME_FRAMES = 10    # frames per timed kernel call
 NA, NB, NL, FS = 384, 16, 256, 160
 SOURCES = ("sample_frame", "sample_frame_opt", "synth_samples",
@@ -136,6 +167,7 @@ DFC_MACS = 2 * NB * NL
 GRU_WEIGHT_FLOATS = (3 * NL * 3 * NA + NA * 3 * NA + 3 * NA + NA * 3 * NB
                      + NB * 3 * NB + 3 * NB)
 STATE_FLOATS = NA + NB + 16 + 2 + 8     # rng: 4 int64
+TABLE_FLOATS = 3 * NL * 3 * NA          # the three embedding tables
 
 
 def fail(msg: str) -> int:
@@ -181,12 +213,16 @@ def loss_flags(batch: int, frames: int) -> np.ndarray:
     return lost
 
 
-def sample_bound_ms(batch: int, ns: int, forced: bool) -> tuple:
+def sample_bound_ms(batch: int, ns: int, forced: bool,
+                    table_bytes: int = 4) -> tuple:
     """Least time for one launch of the sample loop over ns samples: the
     larger of its float32 operations over the peak rate and the bytes it
-    must move (each input once, each output once) over the memory rate."""
+    must move (each input once, each output once) over the memory rate.
+    table_bytes: bytes per element of the three embedding tables (2 for the
+    bf16 instances)."""
     flops = 2.0 * (GRU_MACS + DFC_MACS) * ns * batch
-    weights = (GRU_WEIGHT_FLOATS + 2 * NB * NL + 4 * NL + 2 * NL) * 4
+    weights = ((GRU_WEIGHT_FLOATS + 2 * NB * NL + 4 * NL + 2 * NL) * 4
+               - TABLE_FLOATS * (4 - table_bytes))
     per_stream = (3 * NA + 3 * NB + 16) * 4 + 2 * STATE_FLOATS * 4 + ns * 4
     if forced:
         per_stream += ns * 4 + 8          # target, preload, force_from
@@ -207,6 +243,14 @@ def floor_ms(batch: int, ns: int, dual_fc: bool = True) -> float:
     rate; dual_fc False: K4, which has none."""
     macs = (GRU_MACS + DFC_MACS * dual_fc) * ns * batch
     return 2.0 * macs / PEAK_LANE_INSTR * 1e3
+
+
+def codec_speech(batch: int) -> np.ndarray:
+    """The golden speech for each of `batch` streams, stream b rotated by
+    CODEC_ROTATE * b samples, so the streams differ and each holds the
+    whole file (50 packets)."""
+    x = np.fromfile(SPEECH, np.int16).astype(np.float32)
+    return np.stack([np.roll(x, -CODEC_ROTATE * b) for b in range(batch)])
 
 
 def slice_args(args, n: int):
@@ -253,6 +297,16 @@ def host_ms(fn, reps: int, wait: bool = True) -> float:
     t = (time.perf_counter() - t0) * 1e3 / reps
     torch.cuda.synchronize()
     return t
+
+
+def plain_frames(sample_scan, variant, tables, state, conds, cfg):
+    """The plain PyTorch version of the frame kernel `variant` on the
+    card."""
+    if variant in ("fuse", "opt"):
+        return sample_scan.synthesize_frames_opt(
+            tables, state, conds, cfg, pipeline_thr=variant == "opt")
+    return sample_scan.synthesize_frames(tables, state, conds, cfg,
+                                         flat=variant == "flat")
 
 
 def compare_pcm(pcm_k, pcm_p) -> dict:
@@ -339,7 +393,16 @@ def main() -> int:
                                f"got {got}")
         return last
 
+    t_start = time.perf_counter()
+
+    def phase(name):
+        """One line per phase: how far into the run it starts, so that the
+        run can be kept well inside its time limit."""
+        print(f"[clock] phase {name} at {time.perf_counter() - t_start:.1f} "
+              f"s")
+
     # ---- 1. build
+    phase("1 build")
     t0 = time.perf_counter()
     logs = _build.build(SOURCES)
     print(f"[build] {time.perf_counter() - t0:.1f} s [{card}]")
@@ -347,6 +410,7 @@ def main() -> int:
         print(f"[build] {name}: {log.strip() or 'already built'}")
 
     # ---- 2. the synthesis path, each run held against the plain version
+    phase("2 synthesis")
     dev = torch.device("cuda")
     clusters = sample_cuda.max_clusters(dev)
     edge = sample_cuda.TILE * clusters
@@ -399,12 +463,7 @@ def main() -> int:
                                                     variant=variant)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        if variant in ("fuse", "opt"):
-            st_p, pcm_p = sample_scan.synthesize_frames_opt(
-                tables, st0, c, cfg, pipeline_thr=variant == "opt")
-        else:
-            st_p, pcm_p = sample_scan.synthesize_frames(
-                tables, st0, c, cfg, flat=variant == "flat")
+        st_p, pcm_p = plain_frames(sample_scan, variant, tables, st0, c, cfg)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3 / GATE_FRAMES
         rng_ok = torch.equal(st_k["rng"], st_p["rng"])
@@ -464,7 +523,202 @@ def main() -> int:
               f"{timing[(variant, B)]:.4f} ms per frame (CUDA events), bound "
               f"{bound[0]:.6f} ms ({bound[1]}) [{card}]")
 
+    # ---- 2b. the bf16 instances of K1, K2 and K5: one frame through the
+    # entry point per variant at B=1024 (plan T), then each instance under
+    # plan L (B=1, the boundary) and plan T (B=1024) on the run's first
+    # streams against the plain loop on the same bf16 tables and against
+    # the float32 instance on the tables widened: exact
+    phase("2b bf16")
+    big = PATHS[0][1]
+    keys = ("cond_a", "cond_b", "lpc")
+    tables32, st_big, conds_big = inputs[("flat", big)]
+    ck_big = {k: conds_big[k][:, :TIME_FRAMES].contiguous() for k in keys}
+    feats1 = tiled_features(big, 1)
+    bf16_runs, bf16_gates, bf16_ms = {}, {}, {}
+    for variant in sample_cuda.FRAME_VARIANTS:
+        vb = Synthesizer(params=params, device=dev, variant=variant,
+                         tables="bf16")
+        cfg, tb = vb.cfg, vb.frame_tables
+        wide = {k: v for k, v in tb.items() if not k.startswith("fused")}
+        wide.update({k: tb[k].float() for k in sample_scan.TABLES})
+        counter = variant + "_bf16"
+        tag = f"{counter} B={big}"
+        vb.synthesize(vb.reset(big, per_stream_rng=True), feats1)    # warm
+        torch.cuda.synchronize()
+        zero_counts()
+        st0 = vb.reset(big, per_stream_rng=True)
+        _, pcm = vb.synthesize(st0, feats1)
+        torch.cuda.synchronize()
+        counts = dict(sample_cuda.launches)
+        print(f"[bf16] Synthesizer(variant={variant!r}, tables='bf16') "
+              f"B={big} x 1 frame: launches {counts}")
+        if counts[counter] != 1 or sum(counts.values()) != 1:
+            return fail(f"{tag}: expected 1 {counter} launch, got {counts}")
+        expect_plan(tag, big, 1)
+        bf16_runs[variant] = counts[counter]
+        c = {k: v.contiguous() for k, v in vb.conditions(feats1).items()
+             if k in keys}
+        t0 = time.perf_counter()
+        st_p, pcm_p = plain_frames(sample_scan, variant, tb, st0, c, cfg)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = 0.0
+        for plan, B in (("T", big), ("L", 1), ("L", edge)):
+            sB, cB = slice_args(st0, B), slice_args(c, B)
+            with sample_cuda._plan_forced(dev, plan):
+                st_k, pcm_k = sample_cuda.synthesize_frames(
+                    tb, sB, cB, cfg, variant=variant)
+                took = sample_cuda.last_plan[0]
+                st_w, pcm_w = sample_cuda.synthesize_frames(
+                    wide, sB, cB, cfg, variant=variant)
+            torch.cuda.synchronize()
+            fields = ("last_exc", "rng", "gru_a", "gru_b")
+            same_p = {k: torch.equal(st_k[k], st_p[k][:B]) for k in fields}
+            same_p["pcm"] = torch.equal(pcm_k, pcm_p[:B])
+            same_w = {k: torch.equal(st_k[k], st_w[k]) for k in fields}
+            same_w["pcm"] = torch.equal(pcm_k, pcm_w)
+            in_path = plan != "T" or torch.equal(pcm, pcm_k)
+            err = max(err, float((pcm_k - pcm_p[:B]).abs().max()))
+            print(f"[bf16] {counter} plan {took} B={B}: equal to the plain "
+                  f"loop on the bf16 tables {same_p}, to the float32 "
+                  f"instance on the tables widened {same_w}; the run's pcm "
+                  f"is the kernel's {in_path}")
+            if took != plan or not (all(same_p.values())
+                                    and all(same_w.values()) and in_path):
+                return fail(f"{counter} plan {plan} B={B}: the bf16 kernel "
+                            f"is not the plain loop's or the float32 "
+                            f"instance's bits")
+            s0B, ckB = slice_args(st_big, B), slice_args(ck_big, B)
+            with sample_cuda._plan_forced(dev, plan):
+                ms16 = cuda_ms(lambda: sample_cuda.synthesize_frames(
+                    tb, s0B, ckB, cfg, variant=variant), 3) / TIME_FRAMES
+                ms32 = cuda_ms(lambda: sample_cuda.synthesize_frames(
+                    tables32, s0B, ckB, cfg, variant=variant), 3) \
+                    / TIME_FRAMES
+            bf16_ms[(variant, plan, B)] = (ms16, ms32)
+            bound16 = sample_bound_ms(B, FS, False, table_bytes=2)
+            print(f"[time] {counter} plan {plan} B={B}: {ms16:.4f} ms per "
+                  f"frame (CUDA events), the float32 instance {ms32:.4f} on "
+                  f"the same inputs; bound {bound16[0]:.6f} ms "
+                  f"({bound16[1]}), float32 "
+                  f"{sample_bound_ms(B, FS, False)[0]:.6f} [{card}]")
+        bf16_gates[variant] = {"max_abs_err": err, "plain_ms": plain_ms}
+
+    # ---- 2c. the codec end to end: pcm -> packets (the encode command's
+    # chunked steps) -> features (decode_packets) -> speech (synthesize in
+    # 64-frame calls, float32 and bf16 tables)
+    phase("2c codec")
+    from lpcnet_tpu_torch import cli
+    from lpcnet_tpu_torch.codec import codec
+    cbs, cbs_cpu = cli.load_codebooks(None, dev), cli.load_codebooks(None,
+                                                                   "cpu")
+    n_sf = np.fromfile(SPEECH, np.int16).size // (4 * FS)
+    codec_runs = {}
+    for B in CODEC_BATCHES:
+        speech = codec_speech(B)
+        padded = np.stack([cli._pad_to_chunks(x, 4 * n_sf) for x in speech])
+        pcm_dev = torch.as_tensor(padded, device=dev)
+        cli.encode_chunks(cbs, pcm_dev[:, :CHUNK_FRAMES * FS],
+                          CHUNK_FRAMES // 4)                           # warm
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        packets = cli.encode_chunks(cbs, pcm_dev, n_sf)
+        torch.cuda.synchronize()
+        t_enc = time.perf_counter() - t0
+        enc_counts = sum(sample_cuda.launches.values())
+        rows = [r for r in CODEC_CPU_ROWS if r < B]
+        ref = cli.encode_chunks(cbs_cpu, torch.as_tensor(padded[rows]), n_sf)
+        got = packets[rows].cpu()
+        whole = float((got == ref).all(-1).float().mean())
+        byts = float((got == ref).float().mean())
+        print(f"[codec] encode B={B} x {n_sf} packets on the card: "
+              f"{tuple(packets.shape)} {packets.dtype}; against the CPU "
+              f"encode of streams {rows}: whole packets equal {whole} (gate "
+              f">= {CODEC_GATE_PACKETS}), bytes equal {byts} (gate >= "
+              f"{CODEC_GATE_BYTES}); sample-kernel launches {enc_counts}")
+        print(f"[codec] encode B={B}: {t_enc * 1e3 / n_sf:.4f} ms per packet"
+              f" of all {B} streams, {t_enc * 1e3 / (n_sf * B):.6f} ms per "
+              f"stream-packet (host clock, synchronised) [{card}]")
+        if packets.shape != (B, n_sf, 8) or enc_counts \
+                or whole < CODEC_GATE_PACKETS or byts < CODEC_GATE_BYTES:
+            return fail(f"codec B={B}: the card's packets are not the CPU "
+                        f"encode's")
+        mem0 = torch.zeros((B, 18), device=dev)
+        codec.decode_packets(cbs, packets[:, :1], mem0)                # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats, _ = codec.decode_packets(cbs, packets, mem0)
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+        ref_f, _ = codec.decode_packets(cbs_cpu, got, torch.zeros((len(rows),
+                                                                   18)))
+        derr = float((feats[rows].cpu() - ref_f).abs().max())
+        print(f"[codec] decode_packets B={B}: {t_dec * 1e3:.4f} ms for "
+              f"{n_sf} packets (host clock, synchronised), features "
+              f"{tuple(feats.shape)}, max |d| against the CPU decode {derr} "
+              f"(gate <= 1e-5) [{card}]")
+        if feats.shape != (B, 4 * n_sf, 36) or not derr <= 1e-5:
+            return fail(f"codec B={B}: decoded features differ from the "
+                        f"CPU decode")
+        T = feats.shape[1]
+        for tables in ("f32", "bf16"):
+            v = Synthesizer(params=params, device=dev, tables=tables)
+            cfg = v.cfg
+            counter = "flat" if tables == "f32" else "flat_bf16"
+            tag = f"codec synthesis tables={tables} B={B}"
+            v.synthesize(v.reset(B, per_stream_rng=True), feats[:, :2])
+            torch.cuda.synchronize()
+            zero_counts()
+            st0 = v.reset(B, per_stream_rng=True)
+            st, outs = st0, []
+            t0 = time.perf_counter()
+            for f0 in range(0, T, CHUNK_FRAMES):
+                st, out = v.synthesize(st, feats[:, f0:f0 + CHUNK_FRAMES])
+                outs.append(out)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(sample_cuda.launches)
+            o = torch.cat(outs, dim=1).cpu().numpy()
+            print(f"[codec] {tag} x {T} frames in {CHUNK_FRAMES}-frame "
+                  f"calls: launches {counts}; pcm {o.shape}, finite "
+                  f"{bool(np.isfinite(o).all())}, max |pcm| "
+                  f"{np.abs(o).max()}")
+            if counts[counter] != T or sum(counts.values()) != T:
+                return fail(f"{tag}: expected {T} {counter} launches, got "
+                            f"{counts}")
+            expect_plan(tag, B, T)
+            if o.shape != (B, T * FS) or not np.isfinite(o).all() \
+                    or not 0 < np.abs(o).max() <= 32767:
+                return fail(f"{tag}: pcm is not int16-range audio")
+            codec_runs[(B, tables)] = counts[counter]
+            print(f"[codec] {tag}: {wall * 1e3 / T:.4f} ms per frame (host "
+                  f"clock, with conditioning), RT factor "
+                  f"{B * T * 0.01 / wall:.1f}x [{card}]")
+            conds = v.conditions(feats[:, :CHUNK_FRAMES])
+            c = {k: conds[k][:, :GATE_FRAMES].contiguous() for k in keys}
+            st_k, pcm_k = sample_cuda.synthesize_frames(v.frame_tables, st0,
+                                                        c, cfg)
+            st_p, pcm_p = sample_scan.synthesize_frames(v.frame_tables, st0,
+                                                        c, cfg, flat=True)
+            torch.cuda.synchronize()
+            g = compare_pcm(pcm_k, pcm_p)
+            rng_ok = torch.equal(st_k["rng"], st_p["rng"])
+            same_state = all(torch.equal(st_k[k], st_p[k]) for k in st_p)
+            in_path = bool((torch.cat(outs, 1)[:, :GATE_FRAMES * FS]
+                            == pcm_k).all())
+            print(f"[codec] {tag} vs plain ({GATE_FRAMES} frames of this "
+                  f"run): rng exact {rng_ok}, pcm exact fraction "
+                  f"{g['exact_frac']:.6f}, corr {g['corr']:.8f}, max |d| "
+                  f"{g['max_abs_err']}, whole state equal {same_state}; the "
+                  f"run's pcm is the kernel's {in_path}")
+            if not (rng_ok and g["exact_frac"] >= GATE_EXACT
+                    and g["corr"] >= GATE_CORR and in_path):
+                return fail(f"{tag}: kernel disagrees with the plain "
+                            f"version")
+
     # ---- 3. the PLC path: PLCEngine.run, one K3 launch per step
+    phase("3 plc")
     plc_params = convert.load_plc(device=dev)
     calls, plc_runs, engines = {}, {}, {}
     for variant, B, frames in PLC_PATHS:
@@ -509,6 +763,7 @@ def main() -> int:
               f"{B * frames * 0.01 / wall:.1f}x [{card}]")
 
     # ---- 4. the non-causal path: 4 K3 and 3 K4 launches per step
+    phase("4 noncausal")
     nc_counts, nc_step_ms = {}, {}
     for B, frames in NONCAUSAL_PATHS:
         nc = plc.NonCausalPLCEngine(params, plc_params, device=dev)
@@ -551,6 +806,7 @@ def main() -> int:
               f"[{card}]")
 
     # ---- 4b. the other synthesis modes: one K3 launch per frame
+    phase("4b modes")
     B, frames = STREAMING_PATH
     v = Synthesizer(params=params, device=dev)
     look = v.cfg.lookahead
@@ -615,6 +871,7 @@ def main() -> int:
     mode_counts["teacher"] = counts["tf_flat"]
 
     # ---- 4c. the strict engine: 8 K3 launches per step, no K4
+    phase("4c strict")
     strict_runs, strict_engines = {}, {}
     for B, frames in STRICT_PATHS:
         eng = plc.StrictCausalPLCEngine(params, plc_params, device=dev)
@@ -669,6 +926,7 @@ def main() -> int:
 
     # ---- 5. every launched (kernel, argument set, nsamples, batch) held
     # against its plain version on the last launch's own arguments
+    phase("5 holds")
     held = {"tf_flat": [], "tf_base": [], "teacher": []}
 
     def hold_synth(tag, tables, state, cond, cfg, ns, kw):
@@ -742,6 +1000,7 @@ def main() -> int:
             return fail(f"no teacher_advance launch of ns={FS} at B={B}")
 
     # ---- 6. times
+    phase("6 times")
     ktime = {}
     for B in (big, 1):
         for variant in ("flat", "base"):
@@ -854,7 +1113,7 @@ def main() -> int:
             "burg": lambda: burg.burg_cepstral_analysis(fr),
             "features(2 frames)": lambda: features.compute_features(
                 st["enc"], torch.cat([st["prev_out"], fr], -1),
-                return_mid=True),
+                mode="single", return_mid=True),
             "plc_net(2B rows)": lambda: plc_model.step(
                 eng.plc_params, net2, x57, eng.plc_cfg),
             "frame_net_step": lambda: lpcnet_model.frame_net_step(
@@ -907,6 +1166,7 @@ def main() -> int:
 
     # ---- 7. verify_on_device: every kernel against its oracle, the strict
     # engine through the kernels against itself through the plain loops
+    phase("7 verify")
     t0 = time.perf_counter()
     zero_counts()
     report = verify.verify_on_device(plc_frames=VERIFY_STRICT_FRAMES,
@@ -923,6 +1183,7 @@ def main() -> int:
         return fail(f"verify: the strict run lacks a kind of step: {sp}")
 
     # ---- the kernels' line
+    phase("kernels line")
     def plan_keys(name):
         """The plan and cluster size that the kernel's B=1024 run took, and
         its time at the plan boundary under plan L."""
@@ -952,6 +1213,31 @@ def main() -> int:
             "ms_b1": timing[(variant, 1)], "plain_ms_b1": g1["plain_ms"],
             "bound_ms_b1": sample_bound_ms(1, FS, False)[0],
             **plan_keys(variant)})
+    kernels[0]["launches_codec"] = codec_runs[(big, "f32")]
+    bound, bound_by = sample_bound_ms(big, FS, False, table_bytes=2)
+    for variant, line, source in (("flat", 469, "sample_frame"),
+                                  ("base", 440, "sample_frame"),
+                                  ("fuse", 501, "sample_frame_opt"),
+                                  ("opt", 501, "sample_frame_opt")):
+        ms = {(p, b): bf16_ms[(variant, p, b)]
+              for p, b in (("T", big), ("L", 1), ("L", edge))}
+        kernels.append({
+            "name": f"sample_frame_{variant}_bf16", "route": "cuda",
+            "source": f"lpcnet_tpu_torch/csrc/{source}.cu",
+            "replaces": f"lpcnet_tpu/kernels/sample_pallas.py:{line}",
+            "launches": (codec_runs[(big, "bf16")] if variant == "flat"
+                         else bf16_runs[variant]),
+            "max_abs_err": bf16_gates[variant]["max_abs_err"],
+            "tolerance": "pcm, exc, rng and GRU states exact (plain loop on "
+                         "the bf16 tables; float32 instance on them widened)",
+            "ms": ms[("T", big)][0], "ms_f32": ms[("T", big)][1],
+            "plain_ms": bf16_gates[variant]["plain_ms"],
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+            "batch": big, "ms_b1": ms[("L", 1)][0],
+            "ms_f32_b1": ms[("L", 1)][1],
+            "ms_boundary": ms[("L", edge)][0],
+            "ms_f32_boundary": ms[("L", edge)][1],
+            "bound_ms_b1": sample_bound_ms(1, FS, False, table_bytes=2)[0]})
     bound, bound_by = sample_bound_ms(big, FS, True)
     for variant, line in (("flat", 569), ("base", 529)):
         hs = held["tf_" + variant]

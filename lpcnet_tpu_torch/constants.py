@@ -27,6 +27,15 @@ PREEMPHASIS = 0.85
 NB_FEATURES = 20            # 18 cepstra + pitch period + pitch corr
 NB_TOTAL_FEATURES = 36      # + 16 LPC
 
+# --- Codec packet (include/lpcnet.h:49-53) ---
+LPCNET_COMPRESSED_SIZE = 8      # bytes per 40 ms packet -> 1.6 kb/s
+LPCNET_PACKET_SAMPLES = 640     # 4 frames
+
+# --- Codec internals (lpcnet_private.h:20-23) ---
+MULTI = 4
+MULTI_MASK = MULTI - 1
+FORBIDDEN_INTERP = 7
+
 # --- Pitch search (lpcnet_private.h:14-18) ---
 PITCH_MIN_PERIOD = 32
 PITCH_MAX_PERIOD = 256

@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .utils import weights_io
+from .utils import checkpoint, weights_io
 
 _EXAMPLES = os.path.join(os.path.dirname(__file__), os.pardir, "examples")
 DEFAULT_LPCNET = os.path.join(_EXAMPLES, "speech_lpcnet_params.bin")
@@ -38,15 +38,23 @@ def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
     return tree.detach().cpu().numpy()
 
 
+def load_model_params(path: str) -> Dict[str, Any]:
+    """The numpy parameter tree of a save_params checkpoint or of a
+    training checkpoint (the dispatch of lpcnet_tpu/cli.py::
+    load_model_params)."""
+    if checkpoint.MANIFEST in weights_io.read_blob(path):
+        return checkpoint.load_training(path)[0]
+    return weights_io.load_params(path)
+
+
 def load_lpcnet(path: Optional[str] = None, device=None) -> Dict[str, Any]:
-    """Vocoder parameters from a save_params checkpoint; path None loads
-    the shipped examples/speech_lpcnet_params.bin."""
-    return params_from_numpy(weights_io.load_params(path or DEFAULT_LPCNET),
+    """Vocoder parameters from a save_params or training checkpoint; path
+    None loads the shipped examples/speech_lpcnet_params.bin."""
+    return params_from_numpy(load_model_params(path or DEFAULT_LPCNET),
                              device)
 
 
 def load_plc(path: Optional[str] = None, device=None) -> Dict[str, Any]:
-    """PLC-network parameters from a save_params checkpoint; path None
-    loads the shipped examples/speech_plc_params.bin."""
-    return params_from_numpy(weights_io.load_params(path or DEFAULT_PLC),
-                             device)
+    """PLC-network parameters from a save_params or training checkpoint;
+    path None loads the shipped examples/speech_plc_params.bin."""
+    return params_from_numpy(load_model_params(path or DEFAULT_PLC), device)

@@ -27,9 +27,11 @@ struct LpcnetFrameParams {
   const float* cond_b;      // (B, *) rows of stride cb_stride, 3*NB used
   const float* lpc;         // (B, *) rows of stride lpc_stride, ORDER used
   long long ca_stride, cb_stride, lpc_stride;
-  const float* tbl_sig;     // (NL, 3*NA) embedding tables folded
-  const float* tbl_pred;    //   through GRU-A's input kernel (K5: rows
-  const float* tbl_exc;     //   0, NL, 2*NL of tbl_cat (3*NL, 3*NA))
+  const void* tbl_sig;      // (NL, 3*NA) embedding tables folded
+  const void* tbl_pred;     //   through GRU-A's input kernel (K5: rows
+  const void* tbl_exc;      //   0, NL, 2*NL of tbl_cat (3*NL, 3*NA)),
+                            //   float32, or bfloat16 for the BF16
+                            //   instances of K1, K2 and K5
   const float* wr_a;        // (NA, 3*NA)
   const float* br_a;        // (3*NA)
   const float* wi_b;        // (NA, 3*NB)

@@ -6,6 +6,8 @@
 //   K2 _frame_kernel (walked sampling tree), both driven by
 //   synthesize_frame_pallas / synthesize_frames_pallas. One kernel with a
 //   compile-time sampler switch covers both; the two give the same bits.
+//   Each has an instance on float32 embedding tables and one on bfloat16
+//   tables (the TPU kernels' wdtype, table_dtype in the JAX package).
 // What bounds it on an H100, the two launch plans and what each does about
 // it are in sample_loop.cuh.
 
@@ -16,16 +18,22 @@ using lpcnet::FRAME;
 extern "C" {
 
 // Launches one frame under `plan` (0: L, 1: T) with `grid` CTAs on
-// `stream`; `clusters` is the count lpcnet_prepare_plans gave. Returns the
-// cudaError_t of the launch.
-int lpcnet_sample_frame(const LpcnetFrameParams* p, int flat, int plan,
-                        int grid, int clusters, void* stream) {
+// `stream`, with the flat or the walked sampler and on float32 or (bf16)
+// bfloat16 embedding tables; `clusters` is the count lpcnet_prepare_plans
+// gave. Returns the cudaError_t of the launch.
+int lpcnet_sample_frame(const LpcnetFrameParams* p, int flat, int bf16,
+                        int plan, int grid, int clusters, void* stream) {
   if (p->batch <= 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(flat
-      ? lpcnet::launch_sample<FRAME, true, false>(p, plan, grid, clusters, s)
-      : lpcnet::launch_sample<FRAME, false, false>(p, plan, grid, clusters,
+  using lpcnet::launch_sample;
+  if (bf16)
+    return (int)(flat
+        ? launch_sample<FRAME, true, false, true>(p, plan, grid, clusters, s)
+        : launch_sample<FRAME, false, false, true>(p, plan, grid, clusters,
                                                    s));
+  return (int)(flat
+      ? launch_sample<FRAME, true, false>(p, plan, grid, clusters, s)
+      : launch_sample<FRAME, false, false>(p, plan, grid, clusters, s));
 }
 
 // The same frame through the phase-split instance (flat sampler): the
@@ -45,6 +53,10 @@ int lpcnet_prepare_plans(int* count) {
     err = lpcnet::prepare_plans<FRAME, false, false>(count);
   if (err == cudaSuccess)
     err = lpcnet::prepare_plans<FRAME, true, true>(count);
+  if (err == cudaSuccess)
+    err = lpcnet::prepare_plans<FRAME, true, false, true>(count);
+  if (err == cudaSuccess)
+    err = lpcnet::prepare_plans<FRAME, false, false, true>(count);
   return (int)err;
 }
 

@@ -7,7 +7,8 @@
 // lpcnet_tpu/kernels/sample_pallas.py, driven by synthesize_frame_pallas
 // with variant 'fuse' or 'opt'. Its operands are the TPU kernel's, built
 // once per tables dict (kernels/sample_scan.py::fused_operands): ONE
-// embedding table tbl_cat (768, 3*NA) = [tbl_sig; tbl_pred; tbl_exc],
+// embedding table tbl_cat (768, 3*NA) = [tbl_sig; tbl_pred; tbl_exc]
+// (float32, or bfloat16 for the BF16 instances: the TPU kernel's wdtype),
 // whose three rows of a step are read at lsu, 256 + pu and 512 + exc (the
 // wrapper points the argument block's three table pointers into it), and
 // ONE dual-FC weight dfc_w12 (NB, 512) = [w1 | w2] with its bias (512).
@@ -32,25 +33,36 @@ using lpcnet::OPT;
 
 extern "C" {
 
-// Launches one frame ('fuse', or 'opt' with `pipeline`) under `plan` (0:
-// L, 1: T) with `grid` CTAs on `stream`; `clusters` is the count
-// lpcnet_prepare_plans gave. Returns the cudaError_t of the launch.
+// Launches one frame ('fuse', or 'opt' with `pipeline`) on float32 or
+// (bf16) bfloat16 tables under `plan` (0: L, 1: T) with `grid` CTAs on
+// `stream`; `clusters` is the count lpcnet_prepare_plans gave. Returns the
+// cudaError_t of the launch.
 int lpcnet_sample_frame_opt(const LpcnetFrameParams* p, int pipeline,
-                            int plan, int grid, int clusters, void* stream) {
+                            int bf16, int plan, int grid, int clusters,
+                            void* stream) {
   if (p->batch <= 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(pipeline
-      ? lpcnet::launch_sample<OPT, false, false>(p, plan, grid, clusters, s)
-      : lpcnet::launch_sample<FUSE, false, false>(p, plan, grid, clusters,
+  using lpcnet::launch_sample;
+  if (bf16)
+    return (int)(pipeline
+        ? launch_sample<OPT, false, false, true>(p, plan, grid, clusters, s)
+        : launch_sample<FUSE, false, false, true>(p, plan, grid, clusters,
                                                   s));
+  return (int)(pipeline
+      ? launch_sample<OPT, false, false>(p, plan, grid, clusters, s)
+      : launch_sample<FUSE, false, false>(p, plan, grid, clusters, s));
 }
 
-// Readies both instances of this library on the current device and lowers
-// *count to the least number of plan-L clusters either runs at once.
+// Readies the four instances of this library on the current device and
+// lowers *count to the least number of plan-L clusters any runs at once.
 int lpcnet_prepare_plans(int* count) {
   cudaError_t err = lpcnet::prepare_plans<FUSE, false, false>(count);
   if (err == cudaSuccess)
     err = lpcnet::prepare_plans<OPT, false, false>(count);
+  if (err == cudaSuccess)
+    err = lpcnet::prepare_plans<FUSE, false, false, true>(count);
+  if (err == cudaSuccess)
+    err = lpcnet::prepare_plans<OPT, false, false, true>(count);
   return (int)err;
 }
 

@@ -13,7 +13,15 @@
 // ahead; TEACHER forces every step and drops the tail. FLAT picks the
 // sampler (flat sampling tree or the walked one; same bits). PROF adds
 // clock stamps around each phase of the step on the first CTA (the
-// phase-split instances; never the main path).
+// phase-split instances; never the main path). BF16 reads the three
+// embedding tables as bfloat16 (the JAX package's table_dtype of K1, K2
+// and K5, which K3 and K4 do not take): each element is widened with
+// __bfloat162float where the float32 instance reads a float, and the sum
+// ((cond_a + sig) + pred) + exc keeps its order, so a BF16 instance gives
+// the bits of its float32 instance on the tables rounded to bfloat16 and
+// widened. Rounding happens once, on the host, to nearest even
+// (kernels/sample_scan.py::bf16_tables); the kernel never rounds. The
+// rows are half the bytes; the loop is otherwise the same.
 //
 // What bounds it on an H100 (132 SMs, 227 KB of shared memory per block):
 //   * Each step of a stream is one serialized chain (pred -> mu-law ->
@@ -93,6 +101,7 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 
 #include "lpcnet_sample.cuh"
 
@@ -120,6 +129,18 @@ struct Traits {
   static constexpr bool TAIL = !TEACH;         // dual-FC, sampler, pcm
   static constexpr bool NS_ARG = TF || TEACH;  // nsamples from the block
 };
+
+
+// Element i of an embedding table as a float: read through the read-only
+// path, and from a bfloat16 table widened (exact).
+template <bool BF16>
+__device__ __forceinline__ float table_at(const void* tbl, int i) {
+  if constexpr (BF16)
+    return __bfloat162float(
+        __ldg(static_cast<const __nv_bfloat16*>(tbl) + i));
+  else
+    return __ldg(static_cast<const float*>(tbl) + i);
+}
 
 
 // ---- plan L
@@ -658,7 +679,7 @@ __device__ __forceinline__ void gru_a_quad(const float* w0, const float* w1,
 }
 
 // ---- plan L: a 16-CTA cluster per tile of 8 streams
-template <int KIND, bool FLAT, bool PROF>
+template <int KIND, bool FLAT, bool PROF, bool BF16>
 __global__ void __launch_bounds__(THREADS_L, 1)
 sample_l_kernel(const LpcnetFrameParams p) {
   using T = Traits<KIND>;
@@ -805,9 +826,10 @@ sample_l_kernel(const LpcnetFrameParams p) {
 #pragma unroll
         for (int g = 0; g < 3; ++g) {
           const int c = g * NA + unit;
-          zrh[e][g] = ((ca[e][g] + __ldg(p.tbl_sig + idx[0] * G3A + c))
-                       + __ldg(p.tbl_pred + idx[1] * G3A + c))
-                      + __ldg(p.tbl_exc + idx[2] * G3A + c);
+          zrh[e][g] = ((ca[e][g] + table_at<BF16>(p.tbl_sig,
+                                                  idx[0] * G3A + c))
+                       + table_at<BF16>(p.tbl_pred, idx[1] * G3A + c))
+                      + table_at<BF16>(p.tbl_exc, idx[2] * G3A + c);
         }
       }
       const float* w0 = s_wa + u * KPAD;
@@ -956,7 +978,7 @@ __device__ __forceinline__ void gru_a_chunk(const float* rows,
 }
 
 // ---- plan T: one CTA per tile, clusters of 2 sharing wr_a's chunks
-template <int KIND, bool FLAT, bool PROF>
+template <int KIND, bool FLAT, bool PROF, bool BF16>
 __global__ void __launch_bounds__(THREADS_T, 1)
 sample_t_kernel(const LpcnetFrameParams p) {
   using T = Traits<KIND>;
@@ -1110,14 +1132,15 @@ sample_t_kernel(const LpcnetFrameParams p) {
 #pragma unroll
       for (int s = 0; s < TILE; ++s) {
         const int* idx = s_idx + s * 4;
-        const float* ts = p.tbl_sig + idx[0] * G3A + j;
-        const float* tp = p.tbl_pred + idx[1] * G3A + j;
-        const float* te = p.tbl_exc + idx[2] * G3A + j;
+        const int ts = idx[0] * G3A + j;
+        const int tp = idx[1] * G3A + j;
+        const int te = idx[2] * G3A + j;
         float zrh[3];
 #pragma unroll
         for (int g = 0; g < 3; ++g)
-          zrh[g] = ((ca[s][g] + __ldg(ts + g * NA)) + __ldg(tp + g * NA))
-                   + __ldg(te + g * NA);
+          zrh[g] = ((ca[s][g] + table_at<BF16>(p.tbl_sig, ts + g * NA))
+                    + table_at<BF16>(p.tbl_pred, tp + g * NA))
+                   + table_at<BF16>(p.tbl_exc, te + g * NA);
         const float z = sigmoidf(zrh[0] + (acc[s][0] + bra0));
         const float r = sigmoidf(zrh[1] + (acc[s][1] + bra1));
         const float hc = tanhf(zrh[2] + r * (acc[s][2] + bra2));
@@ -1208,10 +1231,10 @@ inline cudaLaunchConfig_t cluster_config(int grid, int threads, size_t smem,
 // (cudaOccupancyMaxActiveClusters). The wrapper calls it for every
 // instance once per device, before any launch there, and keeps the least
 // count.
-template <int KIND, bool FLAT, bool PROF>
+template <int KIND, bool FLAT, bool PROF, bool BF16 = false>
 cudaError_t prepare_plans(int* count) {
-  auto kernel_l = sample_l_kernel<KIND, FLAT, PROF>;
-  auto kernel_t = sample_t_kernel<KIND, FLAT, PROF>;
+  auto kernel_l = sample_l_kernel<KIND, FLAT, PROF, BF16>;
+  auto kernel_t = sample_t_kernel<KIND, FLAT, PROF, BF16>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel_l, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)L_SMEM_BYTES);
@@ -1238,7 +1261,7 @@ cudaError_t prepare_plans(int* count) {
 // count of co-resident plan-L clusters; the grid is checked here). A
 // plan-L grid with more clusters than that is refused: plan L never runs
 // in waves.
-template <int KIND, bool FLAT, bool PROF>
+template <int KIND, bool FLAT, bool PROF, bool BF16 = false>
 cudaError_t launch_sample(const LpcnetFrameParams* p, int plan, int grid,
                           int clusters, cudaStream_t stream) {
   const int tiles = (p->batch + TILE - 1) / TILE;
@@ -1250,7 +1273,8 @@ cudaError_t launch_sample(const LpcnetFrameParams* p, int plan, int grid,
     if (tiles > clusters) return cudaErrorCooperativeLaunchTooLarge;
     cfg = cluster_config(grid, THREADS_L, L_SMEM_BYTES, CLUSTER_L, stream,
                          &attr);
-    err = cudaLaunchKernelEx(&cfg, sample_l_kernel<KIND, FLAT, PROF>, *p);
+    err = cudaLaunchKernelEx(&cfg, sample_l_kernel<KIND, FLAT, PROF, BF16>,
+                             *p);
   } else {
     if (plan != PLAN_T
         || grid != (tiles + CLUSTER_T - 1) / CLUSTER_T * CLUSTER_T)
@@ -1259,7 +1283,8 @@ cudaError_t launch_sample(const LpcnetFrameParams* p, int plan, int grid,
       return cudaErrorMisalignedAddress;         // bulk copies need 16 B
     cfg = cluster_config(grid, THREADS_T, T_SMEM_BYTES, CLUSTER_T, stream,
                          &attr);
-    err = cudaLaunchKernelEx(&cfg, sample_t_kernel<KIND, FLAT, PROF>, *p);
+    err = cudaLaunchKernelEx(&cfg, sample_t_kernel<KIND, FLAT, PROF, BF16>,
+                             *p);
   }
   return err != cudaSuccess ? err : cudaGetLastError();
 }

@@ -1,5 +1,5 @@
-"""Feature extraction front end in its streaming, per-frame form (the port
-of lpcnet_tpu/features.py, mode="single"; reference src/lpcnet_enc.c).
+"""Feature extraction front end (the port of lpcnet_tpu/features.py;
+reference src/lpcnet_enc.c).
 
 A chunk of T frames for B streams is processed as
   1. streaming pre-emphasis                 (lpcnet_enc.c:872-880)
@@ -11,12 +11,13 @@ A chunk of T frames for B streams is processed as
      correlation over 256 lags + 3x sinc-interpolated max   (:539-570)
   6. octave-penalized Viterbi pitch track: a loop over subframes with a
      224-wide path state                                    (:604-635)
-  7. per-frame backward pass over its 2 subframes -> pitch/corr features
-     (process_single_frame, :814-870)
+  7. backward pass and pitch/corr features: per 4-frame superframe of 8
+     subframes with a weighted pitch regression, the codec's mode
+     (:636-697), or per frame over its 2 subframes, the streaming mode
+     the PLC uses (process_single_frame, :814-870)
 
 All per-frame math is parallel over (B, T); only the Viterbi recursion and
-the streaming filters carry state. The 4-frame superframe mode of the codec
-(8-subframe Viterbi and pitch regression) is not ported yet.
+the streaming filters carry state.
 """
 from typing import Dict, Tuple
 
@@ -202,6 +203,77 @@ def viterbi_scan(state: Dict[str, torch.Tensor], xc: torch.Tensor,
             torch.stack(xcps, 1), torch.stack(paths), torch.stack(malls))
 
 
+def _superframe_pitch(bps, bests, xc, fw, quantize: bool):
+    """Backward pass and weighted pitch regression for ONE superframe of 8
+    subframes (lpcnet_enc.c:636-697).
+
+    bps: (B, 8, 224), bests: (B, 8), xc: (B, 8, 256), fw: (B, 8).
+    Returns the superframe's dict: best (B, 8) f32, frame_corr (B,) f32,
+    voiced (B,) bool, corr_id, main_pitch, modulation (B,) int32."""
+    bi = bests[:, 7].long()
+    best = [None] * 8
+    corr = torch.zeros_like(fw[:, 0])
+    for sub in range(7, -1, -1):
+        best[sub] = PITCH_MAX_PERIOD - bi
+        corr = corr + fw[:, sub] * xc[:, sub].gather(1, bi[:, None])[:, 0]
+        bi = bps[:, sub].gather(1, bi[:, None])[:, 0]
+    best = torch.stack(best, dim=1).to(torch.float32)
+    frame_corr = corr / 8.0
+    if quantize:
+        frame_corr = torch.clamp(frame_corr, min=0.0)
+    # weighted linear regression, x-coordinates 2..9 (lpcnet_enc.c:650-657)
+    x = torch.arange(2.0, 10.0, dtype=torch.float32, device=fw.device)
+    sw = fw.sum(1)
+    sx = (fw * x).sum(1)
+    sxx = (fw * x * x).sum(1)
+    sxy = (fw * x * best).sum(1)
+    sy = (fw * best).sum(1)
+    best_a = (sw * sxy - sx * sy) / (sw * sxx - sx * sx)
+    voiced = frame_corr >= 0.3
+    max_a = sy / sw / 32.0
+    best_a = torch.where(voiced, torch.minimum(torch.maximum(best_a, -max_a),
+                                               max_a), 0.0)
+    corr_id = torch.where(voiced, torch.floor((frame_corr - 0.3) / 0.175),
+                          torch.floor(frame_corr / 0.075)).to(torch.int32)
+    if quantize:
+        frame_corr = torch.where(voiced, 0.3875 + 0.175 * corr_id,
+                                 0.0375 + 0.075 * corr_id)
+    best_b = (sy - best_a * sx) / sw
+    center_pitch = best_b + 5.5 * best_a
+    main_pitch = torch.floor(0.5 + 21.0 * 1.442695041 * torch.log(
+        center_pitch / PITCH_MIN_PERIOD))
+    modulation = torch.floor(0.5 + 16 * 7 * best_a / center_pitch)
+    return {"best": best, "frame_corr": frame_corr, "voiced": voiced,
+            "corr_id": corr_id,
+            "main_pitch": torch.clamp(main_pitch, 0, 63).to(torch.int32),
+            "modulation": torch.clamp(modulation, -3, 3).to(torch.int32)}
+
+
+def quantized_pitch(main_pitch: torch.Tensor,
+                    modulation: torch.Tensor) -> torch.Tensor:
+    """Pitch feature 18 of a superframe's 4 frames from its quantized
+    pitch and modulation (lpcnet_enc.c:687-690, lpcnet_dec.c:110-116):
+    (B,) int -> (B, 4)."""
+    subs = torch.arange(4, device=main_pitch.device)
+    p = torch.pow(2.0, main_pitch.to(torch.float32) / 21.0) \
+        * PITCH_MIN_PERIOD
+    p = p[:, None] * (1.0 + modulation.to(torch.float32)[:, None]
+                      / 16.0 / 7.0 * (2 * subs - 3))
+    return 0.02 * (torch.clamp(p, 33.0, 255.0) - 100.0)
+
+
+def pitch_features(sp: Dict[str, torch.Tensor], quantize: bool):
+    """Per-frame pitch/corr features for the 4 frames of a superframe
+    (lpcnet_enc.c:685-697). Returns (B, 4, 2)."""
+    if quantize:
+        f18 = quantized_pitch(sp["main_pitch"], sp["modulation"])
+    else:
+        pairsum = sp["best"][:, 0::2] + sp["best"][:, 1::2]       # (B, 4)
+        f18 = 0.01 * (torch.clamp(pairsum, 66, 510) - 200.0)
+    f19 = (sp["frame_corr"] - 0.5)[:, None].expand_as(f18)
+    return torch.stack([f18, f19], dim=-1)
+
+
 def _single_frame_pitch(bps, bests, xcp, fw):
     """Backward pass + features for ONE frame's 2 subframes
     (process_single_frame, lpcnet_enc.c:814-870).
@@ -220,28 +292,40 @@ def _single_frame_pitch(bps, bests, xcp, fw):
 
 
 def compute_features(state: Dict[str, torch.Tensor], pcm: torch.Tensor,
-                     mode: str = "single", return_mid: bool = False):
-    """Extract features for T frames, batched over streams.
+                     quantize_pitch: bool = False, mode: str = "superframe",
+                     return_mid: bool = False):
+    """Extract features for T frames, batched over streams; the arguments
+    and defaults of lpcnet_tpu/features.py::compute_features.
 
     pcm: (B, T*160) int16-range float. Returns (new_state, features
-    (B, T, 36), aux list, empty in this mode). mode="single": per-frame
-    2-subframe pitch (process_single_frame, lpcnet_enc.c:814-870), the
-    streaming variant the PLC uses; mode="superframe" is the codec's and is
-    not ported yet.
+    (B, T, 36), aux).
 
-    return_mid (T >= 2): additionally return the extractor state as it
-    stands after the FIRST frame only: (new_state, feats, aux, mid_state).
-    A T-frame call equals T serial 1-frame calls, so mid_state is the state
-    a 1-frame call would have produced; the PLC step uses this to advance
-    on the previous output and analyze the current input in ONE pass."""
-    if mode != "single":
-        raise NotImplementedError(
-            f"compute_features mode {mode!r} is not ported yet; only "
-            "mode='single' is")
+    mode="superframe" (T % 4 == 0, the codec's): pitch by the 8-subframe
+    Viterbi and a weighted regression per superframe
+    (lpcnet_compute_features, lpcnet_enc.c:895-909); aux is the list of
+    T // 4 superframe dicts (_superframe_pitch) the codec packs. With
+    quantize_pitch the pitch and correlation features are the ones the
+    decoder rebuilds from the packet's fields. mode="single": per-frame
+    2-subframe pitch (process_single_frame, lpcnet_enc.c:814-870), the
+    streaming variant the PLC uses; aux is empty.
+
+    return_mid (mode="single", T >= 2): additionally return the extractor
+    state as it stands after the FIRST frame only: (new_state, feats, aux,
+    mid_state). A T-frame call equals T serial 1-frame calls, so mid_state
+    is the state a 1-frame call would have produced; the PLC step uses this
+    to advance on the previous output and analyze the current input in ONE
+    pass."""
+    if mode not in ("superframe", "single"):
+        raise ValueError(f"mode must be 'superframe' or 'single', not "
+                         f"{mode!r}")
     B, S = pcm.shape
     T = S // FRAME_SIZE
-    if return_mid and T < 2:
-        raise ValueError("return_mid needs at least 2 frames")
+    if mode == "superframe" and T % 4:
+        raise ValueError(f"superframe mode needs whole superframes of 4 "
+                         f"frames, not {T} frames")
+    if return_mid and (mode != "single" or T < 2):
+        raise ValueError("return_mid needs mode='single' and at least 2 "
+                         "frames")
 
     # 1. pre-emphasis
     xp, new_mem = _preemph(pcm, state["mem_preemph"])
@@ -259,12 +343,14 @@ def compute_features(state: Dict[str, torch.Tensor], pcm: torch.Tensor,
         aligned_full.reshape(B, T, FRAME_SIZE), lpc, state["aligned_hist"],
         state["pitch_filt"])
 
-    # 5. pitch correlation, weights normalized per frame
-    # (lpcnet_enc.c:822-823)
+    # 5. pitch correlation, weights normalized per superframe
+    # (lpcnet_enc.c:602-603) or per frame (:822-823)
     exc_stream = torch.cat([state["exc_hist"], exc.reshape(B, S)], dim=-1)
     xc, ener0 = pitch_xcorr(exc_stream)           # (B, 2T, 256), (B, 2T)
-    fw = ener0.reshape(B, T, 2)
-    fw = (fw * (2 / (1e-15 + fw.sum(-1, keepdim=True)))).reshape(B, 2 * T)
+    group = 8 if mode == "superframe" else 2
+    fw = ener0.reshape(B, 2 * T // group, group)
+    fw = (fw * (group / (1e-15 + fw.sum(-1, keepdim=True)))).reshape(
+        B, 2 * T)
 
     # 6. Viterbi over all subframes
     new_state = dict(state)
@@ -275,10 +361,20 @@ def compute_features(state: Dict[str, torch.Tensor], pcm: torch.Tensor,
                                                               fw)
 
     # 7. backward pass + pitch features
-    pf = torch.stack([_single_frame_pitch(
-        bps[:, 2 * t:2 * t + 2], bests[:, 2 * t:2 * t + 2],
-        xcp[:, 2 * t:2 * t + 2], fw[:, 2 * t:2 * t + 2]) for t in range(T)],
-        dim=1)
+    sps = []
+    if mode == "superframe":
+        for g in range(T // 4):
+            sl = slice(8 * g, 8 * (g + 1))
+            sps.append(_superframe_pitch(bps[:, sl], bests[:, sl],
+                                         xcp[:, sl], fw[:, sl],
+                                         quantize_pitch))
+        pf = torch.cat([pitch_features(sp, quantize_pitch) for sp in sps],
+                       dim=1) if sps else ceps.new_zeros((B, 0, 2))
+    else:
+        pf = torch.stack([_single_frame_pitch(
+            bps[:, 2 * t:2 * t + 2], bests[:, 2 * t:2 * t + 2],
+            xcp[:, 2 * t:2 * t + 2], fw[:, 2 * t:2 * t + 2])
+            for t in range(T)], dim=1)
     feats = torch.cat([ceps, pf, lpc], dim=-1)
     new_state["vq_mem"] = feats[:, T - 1, :NB_BANDS]
     if return_mid:
@@ -296,8 +392,8 @@ def compute_features(state: Dict[str, torch.Tensor], pcm: torch.Tensor,
             exc_hist=exc_stream[:, fs:fs + PITCH_MAX_PERIOD],
             path=vpaths[1], path_all=vmalls[1], best_i=bests[:, 1],
             vq_mem=feats[:, 0, :NB_BANDS])
-        return new_state, feats, [], mid_state
-    return new_state, feats, []
+        return new_state, feats, sps, mid_state
+    return new_state, feats, sps
 
 
 def _preemph(x: torch.Tensor, mem: torch.Tensor):

@@ -9,8 +9,12 @@ For tensors on the CPU the functions run the plain PyTorch version
 current stream, or raise; there is no fallback. `launches[name]` counts
 kernel launches (and nothing else), so a run can show that it went through
 the kernels: 'flat' / 'base' for the free-run frame kernel with either
-sampler, 'fuse' / 'opt' for the fused frame kernel, 'tf_flat' / 'tf_base'
-for synth_samples, 'teacher' for teacher_advance.
+sampler, 'fuse' / 'opt' for the fused frame kernel, each with the suffix
+'_bf16' for its instance on bfloat16 embedding tables (the JAX package's
+table_dtype, sample_scan.bf16_tables), 'tf_flat' / 'tf_base' for
+synth_samples, 'teacher' for teacher_advance. synth_samples and
+teacher_advance take float32 tables only, as their TPU kernels do, and
+raise on any other.
 
 The sample loop has two launch plans, which launch_plan picks from the
 batch and the card's count of co-resident 16-CTA clusters (max_clusters,
@@ -47,7 +51,8 @@ FRAME_VARIANTS = VARIANTS + ("fuse", "opt")
 # the widths the kernels are compiled for (csrc/lpcnet_sample.cuh)
 NA, NB, NL = GRU_A_SIZE, GRU_B_SIZE, DUAL_FC_OUT
 
-launches = {"flat": 0, "base": 0, "fuse": 0, "opt": 0, "tf_flat": 0,
+launches = {"flat": 0, "base": 0, "fuse": 0, "opt": 0, "flat_bf16": 0,
+            "base_bf16": 0, "fuse_bf16": 0, "opt_bf16": 0, "tf_flat": 0,
             "tf_base": 0, "teacher": 0}
 
 # the launch plans of the sample loop (csrc/sample_loop.cuh)
@@ -79,7 +84,9 @@ def launch_plan(batch: int, max_clusters: int) -> Tuple[str, int, int, int]:
 def plan_operands(tables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """wr_a repacked for plan L, built once per tables dict and kept in it
     under "plan_l": wr_a_l (16, 72, 384), where [r, g * 24 + u, k] =
-    wr_a[k, g * 384 + 24 r + u], so each CTA's slice is one block."""
+    wr_a[k, g * 384 + 24 r + u], so each CTA's slice is one block. It is
+    made of wr_a alone, which is float32 whatever the embedding tables'
+    type, so a bf16 tables dict (sample_scan.bf16_tables) shares it."""
     if "plan_l" not in tables:
         wr_a = tables["wr_a"]
         tables["plan_l"] = {"wr_a_l": wr_a.reshape(
@@ -112,15 +119,17 @@ class _Params(ctypes.Structure):
 
 _P, _I, _V = ctypes.POINTER, ctypes.c_int, ctypes.c_void_p
 # the argument types of every entry point: a launch takes the argument
-# block, (a variant switch,) plan, grid, cluster count and stream
+# block, (a variant switch, (the frame kernels) a bf16-table switch,) plan,
+# grid, cluster count and stream
 _LAUNCH = [_P(_Params), _I, _I, _I, _V]
 _SWITCHED = _LAUNCH[:1] + [_I] + _LAUNCH[1:]
+_FRAME = _LAUNCH[:1] + [_I, _I] + _LAUNCH[1:]
 _PREPARE = {"lpcnet_prepare_plans": [_P(_I)]}
 _ENTRIES = {
-    "sample_frame": {"lpcnet_sample_frame": _SWITCHED,
+    "sample_frame": {"lpcnet_sample_frame": _FRAME,
                      "lpcnet_sample_phases": _LAUNCH, **_PREPARE},
     "synth_samples": {"lpcnet_synth_samples": _SWITCHED, **_PREPARE},
-    "sample_frame_opt": {"lpcnet_sample_frame_opt": _SWITCHED, **_PREPARE},
+    "sample_frame_opt": {"lpcnet_sample_frame_opt": _FRAME, **_PREPARE},
     "teacher_advance": {"lpcnet_teacher_advance": _LAUNCH,
                         "lpcnet_teacher_phases": _LAUNCH, **_PREPARE},
 }
@@ -235,10 +244,13 @@ _WEIGHT_SHAPES = ((NL, 3 * NA),) * 3 + (
     (NA, 3 * NA), (3 * NA,), (NA, 3 * NB), (NB, 3 * NB), (3 * NB,))
 
 
-def _check_weights(tables, device, dual_fc=True):
+def _check_weights(tables, device, dual_fc=True, table_dtype=torch.float32):
+    """table_dtype: the type of the three embedding tables; every other
+    weight is float32."""
     f32 = torch.float32
     for name, shape in zip(_WEIGHTS, _WEIGHT_SHAPES):
-        _check(name, tables[name], shape, f32, device)
+        _check(name, tables[name], shape,
+               table_dtype if name in sample_scan.TABLES else f32, device)
     if dual_fc:
         dfc = tables["dual_fc"]
         _check("dual_fc.w", dfc["w"], (2, NB, NL), f32, device)
@@ -300,7 +312,8 @@ def _fuse_operands(p: _Params, tables, device) -> None:
     2 * NL) and dfc_b at dfc_b12 (2 * NL), which has dfc_b's layout."""
     fused = sample_scan.fused_operands(tables)
     f32 = torch.float32
-    _check("tbl_cat", fused["tbl_cat"], (3 * NL, 3 * NA), f32, device)
+    _check("tbl_cat", fused["tbl_cat"], (3 * NL, 3 * NA),
+           sample_scan.table_dtype(tables), device)
     _check("dfc_w12", fused["dfc_w12"], (NB, 2 * NL), f32, device)
     _check("dfc_b12", fused["dfc_b12"], (2 * NL,), f32, device)
     rows = fused["tbl_cat"].data_ptr()
@@ -308,6 +321,15 @@ def _fuse_operands(p: _Params, tables, device) -> None:
     p.tbl_sig, p.tbl_pred, p.tbl_exc = rows, rows + table, rows + 2 * table
     p.dfc_w = fused["dfc_w12"].data_ptr()
     p.dfc_b = fused["dfc_b12"].data_ptr()
+
+
+def _require_f32_tables(tables, what: str) -> None:
+    """K3 and K4 take float32 embedding tables only, as synth_samples_pallas
+    and teacher_advance_pallas do (no table_dtype): anything else raises,
+    on every device, and is never cast."""
+    if sample_scan.table_dtype(tables) != torch.float32:
+        raise TypeError(f"{what} takes float32 embedding tables only; "
+                        f"bfloat16 tables are for the frame kernels")
 
 
 def _variant_flat(variant: str) -> bool:
@@ -325,12 +347,15 @@ def synthesize_frames(tables: Dict[str, Any], state: Dict[str, torch.Tensor],
     conds: cond_a (B,T,3Na), cond_b (B,T,3Nb), lpc (B,T,16). variant: 'flat'
     (flat sampling tree, K1), 'base' (walked tree, K2), 'fuse' or 'opt' (the
     fused frame kernel K5, without and with the thresholds drawn one sample
-    ahead); all give the same bits. Returns (new_state, pcm (B, T*160)
-    float32)."""
+    ahead); all give the same bits. The three embedding tables are float32,
+    or bfloat16 (sample_scan.bf16_tables) for the kernels' bf16 instances,
+    which give the bits of the float32 kernel on those tables widened.
+    Returns (new_state, pcm (B, T*160) float32)."""
     if variant not in FRAME_VARIANTS:
         raise ValueError(f"variant must be one of {FRAME_VARIANTS}, not "
                          f"{variant!r}")
     fused = variant in ("fuse", "opt")
+    tdtype = sample_scan.table_dtype(tables)
     device = conds["cond_a"].device
     if device.type == "cpu":
         if fused:
@@ -346,8 +371,10 @@ def synthesize_frames(tables: Dict[str, Any], state: Dict[str, torch.Tensor],
     _check("cond_a", conds["cond_a"], (B, T, 3 * NA), f32, device)
     _check("cond_b", conds["cond_b"], (B, T, 3 * NB), f32, device)
     _check("lpc", conds["lpc"], (B, T, LPC_ORDER), f32, device)
-    _check_weights(tables, device)
+    _check_weights(tables, device, table_dtype=tdtype)
     _check_state(state, B, device)
+    bf16 = tdtype == torch.bfloat16
+    counter = variant + "_bf16" if bf16 else variant
 
     if T == 0:
         return ({k: v.clone() for k, v in state.items()},
@@ -372,10 +399,10 @@ def synthesize_frames(tables: Dict[str, Any], state: Dict[str, torch.Tensor],
             p.cond_b = conds["cond_b"].data_ptr() + 4 * t * 3 * NB
             p.lpc = conds["lpc"].data_ptr() + 4 * t * LPC_ORDER
             p.pcm = pcm.data_ptr() + 4 * t * FRAME_SIZE
-            _raise_on(launch(ctypes.byref(p), int(switch), PLANS[plan], grid,
-                             clusters, stream), lib,
-                      f"sample_frame ({variant})")
-            launches[variant] += 1
+            _raise_on(launch(ctypes.byref(p), int(switch), int(bf16),
+                             PLANS[plan], grid, clusters, stream), lib,
+                      f"sample_frame ({counter})")
+            launches[counter] += 1
             plan_launches[plan] += 1
             # later frames update the new state in place
             p.gru_a_in, p.gru_b_in = p.gru_a_out, p.gru_b_out
@@ -470,6 +497,7 @@ def synth_samples(tables: Dict[str, Any], state: Dict[str, torch.Tensor],
     float32; preload, n_active, force_from (B,) int32.
     Returns (new_state, (B, nsamples) float32)."""
     flat = _variant_flat(variant)
+    _require_f32_tables(tables, "synth_samples")
     device = cond["cond_a"].device
     if device.type == "cpu":
         return sample_scan.synth_samples(
@@ -532,6 +560,7 @@ def teacher_advance(tables: Dict[str, Any], state: Dict[str, torch.Tensor],
 
     cond: cond_a (B,3Na), cond_b (B,3Nb), lpc (B,16); target (B, ns)
     float32. Returns (new_state, target)."""
+    _require_f32_tables(tables, "teacher_advance")
     device = cond["cond_a"].device
     if device.type == "cpu":
         return sample_scan.teacher_advance(tables, state, cond, cfg, target)

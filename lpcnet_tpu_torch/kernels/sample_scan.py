@@ -28,6 +28,12 @@ matmul library sums in its own order; that is why this version does not
 call one, and why it is slow: it repeats the kernel's arithmetic and is no
 yardstick of speed.
 
+The three embedding tables may be float32 or bfloat16 (bf16_tables, the
+JAX package's table_dtype of the frame kernels): a bfloat16 row enters the
+GRU-A input sum widened to float32, exactly as the TPU kernel's one-hot
+product with float32 accumulation takes it (sample_pallas.py:234-242), so
+no step of the loop changes.
+
 The state is a dict: gru_a (B,384) f32, gru_b (B,16) f32, last_sig (B,16)
 f32, last_exc (B,) int32, deemph (B,) f32 and rng (B,4) int64 holding the
 JAX package's uint32 KISS99 state.
@@ -423,22 +429,51 @@ def synthesize_frames(tables: Dict[str, Any], state: Dict[str, torch.Tensor],
     return state, torch.cat(pcm, dim=1).reshape(B, T * fs)
 
 
+TABLES = ("tbl_sig", "tbl_pred", "tbl_exc")
+TABLE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def bf16_tables(tables: Dict[str, Any]) -> Dict[str, Any]:
+    """A tables dict whose three embedding tables are rounded to bfloat16
+    (round to nearest even, as the JAX package's astype(jnp.bfloat16)):
+    the operand of the frame kernels' bf16 instances. A new dict; the
+    other entries are shared, the fused operands built from the float32
+    tables are not carried over."""
+    out = {k: v for k, v in tables.items() if not k.startswith("fused")}
+    out.update({k: tables[k].to(torch.bfloat16).contiguous()
+                for k in TABLES})
+    return out
+
+
+def table_dtype(tables: Dict[str, Any]) -> torch.dtype:
+    """The element type of the three embedding tables: float32 or
+    bfloat16, the same for all three."""
+    dtypes = {tables[k].dtype for k in TABLES}
+    if len(dtypes) != 1 or not dtypes <= set(TABLE_DTYPES):
+        raise TypeError(f"the embedding tables must all be float32 or all "
+                        f"bfloat16, not {sorted(map(str, dtypes))}")
+    return dtypes.pop()
+
+
 def fused_operands(tables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """The operands the fused frame kernel takes in place of the three
     embedding tables and the two dual-FC channels, as
     synthesize_frame_pallas builds them (sample_pallas.py:1000-1008):
-    tbl_cat (768, 3Na) = [tbl_sig; tbl_pred; tbl_exc], dfc_w12 (Nb, 512) =
-    [w[0] | w[1]] and dfc_b12 (512,) = [b[0], b[1]]. Built once per tables
-    dict (on the tables' device) and kept in it under "fused"."""
-    if "fused" not in tables:
+    tbl_cat (768, 3Na) = [tbl_sig; tbl_pred; tbl_exc] in the tables' type,
+    dfc_w12 (Nb, 512) = [w[0] | w[1]] and dfc_b12 (512,) = [b[0], b[1]].
+    Built once per tables dict (on the tables' device) and kept in it under
+    "fused", or "fused_bf16" for bfloat16 tables, so that operands of the
+    two table types never share an entry."""
+    key = "fused" if table_dtype(tables) == torch.float32 else "fused_bf16"
+    if key not in tables:
         dfc = tables["dual_fc"]
-        tables["fused"] = {
+        tables[key] = {
             "tbl_cat": torch.cat([tables["tbl_sig"], tables["tbl_pred"],
                                   tables["tbl_exc"]], dim=0).contiguous(),
             "dfc_w12": torch.cat([dfc["w"][0], dfc["w"][1]],
                                  dim=1).contiguous(),
             "dfc_b12": torch.cat([dfc["b"][0], dfc["b"][1]]).contiguous()}
-    return tables["fused"]
+    return tables[key]
 
 
 def synthesize_frame_opt(tables: Dict[str, Any],

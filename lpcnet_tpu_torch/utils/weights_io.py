@@ -3,7 +3,9 @@ lpcnet_tpu/utils/weights_io.py without its native ctypes path).
 
 Record layout: nnet.h:41-61 WeightHead; parser parse_lpcnet_weights.c:36-77.
 load_params reads the checkpoints that lpcnet_tpu's save_params writes
-('/'-joined parameter paths and shapes in a JSON manifest record).
+('/'-joined parameter paths and shapes in a JSON manifest record), and the
+training checkpoints of lpcnet_tpu's save_training through
+utils/checkpoint.py.
 """
 import json
 import struct
@@ -37,13 +39,12 @@ def read_blob(path: str) -> Dict[str, np.ndarray]:
     return out
 
 
-def load_params(path: str) -> Dict[str, Any]:
-    """Load a checkpoint written by save_params back into a nested dict of
-    numpy arrays."""
-    raw = read_blob(path)
-    manifest = json.loads(raw.pop("__manifest__").tobytes().decode())
+def unflatten(raw: Dict[str, np.ndarray],
+              records: Dict[str, Any]) -> Dict[str, Any]:
+    """The nested dict of numpy arrays that a manifest's records describe:
+    {record: {"name": '/'-joined path, "shape", "dtype"}}."""
     out: Dict[str, Any] = {}
-    for rec, meta in manifest.items():
+    for rec, meta in records.items():
         a = raw[rec].astype(meta["dtype"]).reshape(meta["shape"])
         node = out
         parts = meta["name"].split("/")
@@ -51,3 +52,11 @@ def load_params(path: str) -> Dict[str, Any]:
             node = node.setdefault(p, {})
         node[parts[-1]] = a
     return out
+
+
+def load_params(path: str) -> Dict[str, Any]:
+    """Load a checkpoint written by save_params back into a nested dict of
+    numpy arrays."""
+    raw = read_blob(path)
+    return unflatten(raw, json.loads(raw.pop("__manifest__").tobytes()
+                                     .decode()))

@@ -11,6 +11,9 @@ On a CUDA device every frame of synthesize runs the hand-written frame
 kernel and every frame of synthesize_teacher / synthesize_streaming one
 synth_samples launch (kernels/sample_cuda.py); device="cpu" runs the plain
 PyTorch loops. synthesize_temperature runs the plain loop on either device.
+Synthesizer(tables="bf16") gives synthesize's frame kernel bfloat16
+embedding tables (the JAX package's LPCNET_KERNEL_TABLES=bf16); every other
+mode keeps float32 tables, as in the JAX package.
 """
 from typing import Any, Dict, Optional, Tuple
 
@@ -22,18 +25,25 @@ from .kernels import sample_cuda, sample_scan
 from .models import lpcnet
 from .ops import kiss99
 
+TABLE_TYPES = ("f32", "bf16")
+
 
 class Synthesizer:
     def __init__(self, cfg: Optional[lpcnet.LPCNetConfig] = None,
                  params: Optional[Dict[str, Any]] = None, device=None,
-                 variant: str = "flat"):
+                 variant: str = "flat", tables: str = "f32"):
         """params: the port's parameter dict (convert.load_lpcnet /
         params_from_numpy); None loads the shipped checkpoint. device: None
         means the card, and raises where there is none. variant: the frame
         kernel of synthesize: 'flat' (flat sampling tree), 'base' (walked
         tree), 'fuse' (one embedding table and one dual-FC product) or
         'opt' (fuse with the thresholds drawn one sample ahead); same bits.
-        The JAX package reads it from LPCNET_KERNEL_VARIANT."""
+        The JAX package reads it from LPCNET_KERNEL_VARIANT. tables: the
+        type of synthesize's embedding tables, 'f32' or 'bf16' (a copy
+        rounded to nearest even, made once; the JAX package reads it from
+        LPCNET_KERNEL_TABLES). bf16 tables are a reduced-precision model:
+        other bits than f32, the same in every variant. On the CPU
+        synthesize runs the plain loop on the rounded tables widened."""
         self.device = resolve_device(device)
         if variant not in sample_cuda.FRAME_VARIANTS:
             raise ValueError(
@@ -42,7 +52,14 @@ class Synthesizer:
         if params is None:
             params = convert.load_lpcnet(device=self.device)
         self.params = _to(params, self.device)
+        if tables not in TABLE_TYPES:
+            raise ValueError(f"tables must be one of {TABLE_TYPES}, not "
+                             f"{tables!r}")
         self.tables = lpcnet.precompute_sample_tables(self.params, self.cfg)
+        # the frame kernel's operand: the tables, or a bf16 copy of the
+        # three embedding tables
+        self.frame_tables = (sample_scan.bf16_tables(self.tables)
+                             if tables == "bf16" else self.tables)
         self.variant = variant
         # synth_samples has the two samplers only; as in the JAX package
         # anything but 'flat' maps to the walked tree
@@ -65,7 +82,7 @@ class Synthesizer:
         """features: (B, T, 20..36) -> (new_state, pcm (B, T*160) float32
         of rounded int16-range samples)."""
         conds = self.conditions(features)
-        return sample_cuda.synthesize_frames(self.tables, state, conds,
+        return sample_cuda.synthesize_frames(self.frame_tables, state, conds,
                                              self.cfg, variant=self.variant)
 
     @torch.no_grad()

@@ -166,6 +166,51 @@ def test_fused_kernel_bit_identical_to_plain_and_base(card, variant, plan,
         assert torch.equal(st_k[k], st_b[k]), k
 
 
+def _widened(tables):
+    """The float32 tables dict of bf16 tables: each table widened."""
+    out = {k: v for k, v in tables.items() if not k.startswith("fused")}
+    out.update({k: tables[k].float() for k in sample_scan.TABLES})
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sample_cuda.FRAME_VARIANTS)
+@pytest.mark.parametrize("plan,batch", PLAN_CASES, ids=PLAN_IDS)
+def test_bf16_kernel_bit_identical_to_plain_and_f32_kernel(card, variant,
+                                                           plan, batch):
+    """The bf16 instance of each frame kernel (K1 flat, K2 base, K5 fuse
+    and opt) over 2 frames under either plan: pcm and every state leaf
+    equal to the plain loop's on the same bf16 tables and to the float32
+    instance's on those tables widened, exactly (it widens each element
+    and keeps the sum's order); counted under <variant>_bf16 alone."""
+    batch = _batch(card, batch)
+    voc, conds, state, _ = _setup(card, batch, warm=False)
+    tb = sample_scan.bf16_tables(voc.tables)
+    before = dict(sample_cuda.launches)
+    with sample_cuda._plan_forced(card, plan):
+        st_k, pcm_k = sample_cuda.synthesize_frames(tb, state, conds,
+                                                    voc.cfg, variant=variant)
+        torch.cuda.synchronize()
+        assert sample_cuda.last_plan[0] == plan
+        after = dict(sample_cuda.launches)
+        assert after.pop(variant + "_bf16") \
+            == before.pop(variant + "_bf16") + 2
+        assert after == before
+        st_w, pcm_w = sample_cuda.synthesize_frames(
+            _widened(tb), state, conds, voc.cfg, variant=variant)
+    if variant in ("fuse", "opt"):
+        plain = lambda: sample_scan.synthesize_frames_opt(
+            tb, state, conds, voc.cfg, pipeline_thr=variant == "opt")
+    else:
+        plain = lambda: sample_scan.synthesize_frames(
+            tb, state, conds, voc.cfg, flat=variant == "flat")
+    st_p, pcm_p = _plain_once(("bf16", variant, batch), plain)
+    assert torch.equal(pcm_k, pcm_p) and torch.equal(pcm_k, pcm_w)
+    for k in st_p:
+        assert torch.equal(st_k[k], st_p[k]), k
+        assert torch.equal(st_k[k], st_w[k]), k
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["flat", "base"])
 @pytest.mark.parametrize("plan,batch", PLAN_CASES, ids=PLAN_IDS)
@@ -242,7 +287,8 @@ def test_plan_l_over_the_cluster_count_raises(card, monkeypatch):
     """A plan-L launch with more tiles than the card runs clusters at once
     (here from a launch_plan that ignores the count) is refused by every
     kernel's entry point (K1/K2, K3, K5 'fuse' and 'opt', K4), not run in
-    waves, and nothing retries it under plan T."""
+    waves, and nothing retries it under plan T; the bf16 instances
+    alike."""
     real = sample_cuda.max_clusters(card)
     batch = 8 * real + 1
     voc, _, state, cond = _setup(card, batch, warm=False)
@@ -259,6 +305,11 @@ def test_plan_l_over_the_cluster_count_raises(card, monkeypatch):
                  lambda: sample_cuda.synthesize_frame(*frame),
                  lambda: sample_cuda.synthesize_frame(*frame, variant="fuse"),
                  lambda: sample_cuda.synthesize_frame(*frame, variant="opt"),
+                 lambda: sample_cuda.synthesize_frame(
+                     sample_scan.bf16_tables(voc.tables), *frame[1:]),
+                 lambda: sample_cuda.synthesize_frame(
+                     sample_scan.bf16_tables(voc.tables), *frame[1:],
+                     variant="fuse"),
                  lambda: sample_cuda.teacher_advance(voc.tables, state, cond,
                                                      voc.cfg, target)):
         with pytest.raises(RuntimeError, match="launch failed"):
@@ -281,3 +332,14 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
         sample_cuda.teacher_advance(
             voc.tables, state, cond, voc.cfg,
             torch.zeros((2, 0), device=card))
+    # K3 and K4 take float32 tables only; a mixed set is refused too
+    tb = sample_scan.bf16_tables(voc.tables)
+    with pytest.raises(TypeError, match="float32"):
+        sample_cuda.synth_samples(tb, state, cond, voc.cfg, 80)
+    with pytest.raises(TypeError, match="float32"):
+        sample_cuda.teacher_advance(tb, state, cond, voc.cfg,
+                                    torch.zeros((2, 80), device=card))
+    with pytest.raises(TypeError, match="bfloat16"):
+        sample_cuda.synthesize_frame(dict(voc.tables, tbl_exc=tb["tbl_exc"]),
+                                     state, cond["cond_a"], cond["cond_b"],
+                                     cond["lpc"], voc.cfg)

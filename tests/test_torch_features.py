@@ -1,7 +1,8 @@
-"""The port's feature extractor (features.py, single mode), Burg analysis
+"""The port's feature extractor (features.py, both modes), Burg analysis
 (ops/burg.py), streaming frame network (models/lpcnet.frame_net_step) and
 PLC network (models/plc.py) against the JAX package on the same inputs."""
 import dataclasses
+import inspect
 import os
 
 import jax
@@ -87,10 +88,13 @@ def test_compute_features_single_matches_jax(return_mid):
 def test_mid_state_is_a_one_frame_calls_state():
     x = torch.as_tensor(_chunks(2, 3))
     st0 = t_feat.init_state(2)
-    st0, _, _ = t_feat.compute_features(st0, x[:, :FRAME_SIZE])   # warm
+    st0, _, _ = t_feat.compute_features(st0, x[:, :FRAME_SIZE],
+                                        mode="single")            # warm
     rest = x[:, FRAME_SIZE:]
-    _, feats, _, mid = t_feat.compute_features(st0, rest, return_mid=True)
-    one, f1, _ = t_feat.compute_features(st0, rest[:, :FRAME_SIZE])
+    _, feats, _, mid = t_feat.compute_features(st0, rest, mode="single",
+                                               return_mid=True)
+    one, f1, _ = t_feat.compute_features(st0, rest[:, :FRAME_SIZE],
+                                         mode="single")
     for k in one:
         torch.testing.assert_close(mid[k], one[k], rtol=0, atol=1e-3,
                                    msg=k)
@@ -98,11 +102,57 @@ def test_mid_state_is_a_one_frame_calls_state():
     torch.testing.assert_close(feats[:, :1], f1, rtol=0, atol=1e-5)
 
 
-def test_superframe_mode_is_not_ported():
-    with pytest.raises(NotImplementedError):
+SP_INT_FIELDS = ("best", "voiced", "corr_id", "main_pitch", "modulation")
+
+
+@pytest.mark.parametrize("quantize_pitch", [False, True])
+def test_compute_features_superframe_matches_jax(quantize_pitch):
+    """The codec's mode on the first 64 frames of the speech and a copy
+    shifted by 1000 samples (16 superframes each), both packages' defaults
+    (mode="superframe"). Each superframe's integer pitch decision (best,
+    voiced, corr_id, main_pitch, modulation) exact and its frame_corr to
+    1e-6; cepstrum and LPC to 1e-4 (FFT and matmul sums in another order);
+    the pitch and correlation features to 1e-5; the state as in the single
+    mode, best_i exact."""
+    x = np.stack([SPEECH[:64 * FRAME_SIZE],
+                  SPEECH[1000:1000 + 64 * FRAME_SIZE]])
+    sj, fj, spj = j_feat.compute_features(j_feat.init_state(2),
+                                          jnp.asarray(x), quantize_pitch)
+    st, ft, spt = t_feat.compute_features(t_feat.init_state(2),
+                                          torch.as_tensor(x), quantize_pitch)
+    fj, ft = np.asarray(fj), ft.numpy()
+    assert ft.shape == (2, 64, 36) and len(spt) == len(spj) == 16
+    np.testing.assert_allclose(ft[..., :NB_BANDS], fj[..., :NB_BANDS],
+                               atol=1e-4)
+    np.testing.assert_allclose(ft[..., 20:], fj[..., 20:], atol=1e-4)
+    np.testing.assert_allclose(ft[..., 18:20], fj[..., 18:20], atol=1e-5)
+    for g, (a, b) in enumerate(zip(spj, spt)):
+        assert set(a) == set(b)
+        for k in SP_INT_FIELDS:
+            np.testing.assert_array_equal(b[k].numpy(), np.asarray(a[k]),
+                                          err_msg=f"superframe {g} {k}")
+        np.testing.assert_allclose(b["frame_corr"].numpy(),
+                                   np.asarray(a["frame_corr"]), atol=1e-6)
+    _assert_state(st, sj, np.abs(x).max())
+
+
+def test_compute_features_has_the_jax_signature():
+    """The same parameters, order and defaults as the JAX function, so a
+    call written for one gets the same features from the other; a chunk
+    of the codec's mode is whole superframes."""
+    assert inspect.signature(t_feat.compute_features).parameters.keys() \
+        == inspect.signature(j_feat.compute_features).parameters.keys()
+    for name, p in inspect.signature(
+            j_feat.compute_features).parameters.items():
+        assert inspect.signature(t_feat.compute_features).parameters[
+            name].default == p.default, name
+    with pytest.raises(ValueError, match="superframe"):
+        t_feat.compute_features(t_feat.init_state(1),
+                                torch.zeros((1, 6 * FRAME_SIZE)))
+    with pytest.raises(ValueError, match="return_mid"):
         t_feat.compute_features(t_feat.init_state(1),
                                 torch.zeros((1, 4 * FRAME_SIZE)),
-                                mode="superframe")
+                                return_mid=True)
 
 
 @pytest.mark.parametrize("fn", ["apply_window", "forward_transform",

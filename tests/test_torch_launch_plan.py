@@ -171,7 +171,8 @@ def test_fused_dual_fc_staging_reassembles_dfc_w():
     assert torch.equal(w12[torch.as_tensor(idx)].reshape(2, NB, NL), w)
 
 
-_CTYPES = {"float*": ctypes.c_void_p, "int*": ctypes.c_void_p,
+_CTYPES = {"float*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+           "int*": ctypes.c_void_p,
            "long long*": ctypes.c_void_p, "unsigned long long*":
            ctypes.c_void_p, "long long": ctypes.c_longlong,
            "int": ctypes.c_int, "float": ctypes.c_float}
