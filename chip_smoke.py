@@ -55,6 +55,18 @@ Phases, each fatal on failure:
                the plain loop as in phase 2. [codec] lines: encode ms per
                packet, decode ms, synthesis ms per frame (host clock,
                synchronised).
+  2d. dred  - DRED end to end with the shipped cond-256/256 weights (80
+               latents, 16-dframe payloads), as the fec-encode command runs
+               it: the golden speech at B=1 and B=1024 (rotated as in 2c),
+               superframe features, DREDCodec.encode, then quantize_payload
+               and decode at every packet position. Held against the port
+               on the CPU (B=1 and the first 2 streams of B=1024, on the
+               card's features): symbols >= 99.5% equal and within 1, PVQ
+               states equal on >= 99% of the dframes, features decoded
+               from the same symbols and states within 1e-3; the q0 round
+               trip of 160 frames (tests/test_rdovae.py's recipe) RMS < 0.8
+               and within 2% of the CPU's. [dred] lines: encode ms for the
+               file, quantize + decode ms per payload.
   3. plc     - PLCEngine(...).run with the shipped vocoder and PLC weights
                on the golden speech tiled over the streams, per-stream loss
                flags (20%, runs of 1-3 frames): B=1024 x 50 frames and B=1
@@ -78,8 +90,23 @@ Phases, each fatal on failure:
                counts) and no teacher_advance; output finite, int16 range,
                good rows equal to their input, blend rows in their second
                half.
+  4d. dred-plc - PLCEngine.step at B=1024 and B=1 over the speech of 2d
+               with loss_flags (200 frames): before each step, every lost
+               stream queues (fec_add) the features of that frame from the
+               newest DRED payload that covers it. One K3 launch per step
+               (held in phase 5); gates: some lost frames were concealed
+               from DRED features, good rows equal their input.
+  4e. dotprod - Synthesizer(backend="dotprod"), signed and SU flavours, B=4
+               x 2 frames, on the card and on the CPU: no hand-written
+               kernel launched; on the CPU run's tables and conditions the
+               card gives its pcm, exc, rng and GRU states exactly; the
+               card's own run has the CPU run's rng.
+  4f. tools  - rdovae-encode, rdovae-decode, fec-encode, plc-test and
+               addlpc through cli.main in a temporary directory, on the card
+               and with --device cpu, held to the tolerances of
+               tests/test_torch_tools.py; dump-weights-blob read back.
   5. holds   - for every distinct (kernel, argument set, nsamples, batch)
-               that phases 3 to 4c launched, the arguments of its last
+               that phases 3 to 4d launched, the arguments of its last
                launch in the run go through the kernel and through its
                plain version on the card: the gates of phase 2 for
                synth_samples; for teacher_advance every state field
@@ -153,6 +180,12 @@ CODEC_BATCHES = (1, 1024)   # streams of the codec phase
 CODEC_CPU_ROWS = (0, 1, 511, 1023)  # streams the CPU encode repeats
 CODEC_GATE_PACKETS, CODEC_GATE_BYTES = 0.90, 0.95
 CODEC_ROTATE = 37      # samples each codec stream is rotated by, per stream
+# DRED: streams of B=1024 the CPU repeats, and the gates of the card against
+# the CPU (a float sum in another order can flip a symbol at a rounding tie)
+DRED_BATCHES = (1, 1024)
+DRED_CPU_ROWS = 2
+DRED_GATE_SYMBOLS, DRED_GATE_STATES, DRED_GATE_FEATS = 0.995, 0.99, 1e-3
+DOTPROD_PATH = (4, 2)    # (streams, frames) of the DOT_PROD emulation
 CHUNK_FRAMES = 64      # frames per call of the encode and decode commands
 BOUNDARY_FRAMES = 10   # frames of the synthesis run at the plan boundary
 GATE_FRAMES = 1     # frames of each synthesis run held against the plain one
@@ -717,6 +750,10 @@ def main() -> int:
                 return fail(f"{tag}: kernel disagrees with the plain "
                             f"version")
 
+    # ---- 2d. DRED end to end: features -> latents -> payloads -> features
+    phase("2d dred")
+    dred_out = dred_phase(dev, card)
+
     # ---- 3. the PLC path: PLCEngine.run, one K3 launch per step
     phase("3 plc")
     plc_params = convert.load_plc(device=dev)
@@ -923,6 +960,20 @@ def main() -> int:
         print(f"[strict] {tag}: {wall * 1e3 / frames:.4f} ms per step (host "
               f"clock, synchronised at the end), RT factor "
               f"{B * frames * 0.01 / wall:.1f}x [{card}]")
+
+    # ---- 4d. DRED feeding the PLC engine's FEC queue, one K3 launch per
+    # step, held in phase 5
+    phase("4d dred-plc")
+    with Recorder(sample_cuda) as rec:
+        dred_plc = dred_plc_phase(dev, card, dred_out, params, plc_params,
+                                  zero_counts, expect_plan)
+    calls.update(rec.calls)
+
+    # ---- 4e. the DOT_PROD emulation; 4f. the inference tools
+    phase("4e dotprod")
+    dotprod_phase(dev, card, sample_cuda)
+    phase("4f tools")
+    tools_phase(card)
 
     # ---- 5. every launched (kernel, argument set, nsamples, batch) held
     # against its plain version on the last launch's own arguments
@@ -1261,6 +1312,8 @@ def main() -> int:
                        launches_strict_b1=strict_runs[1],
                        launches_streaming=mode_counts["streaming"],
                        launches_teacher=mode_counts["teacher"],
+                       launches_dred_plc=dred_plc[big]["launches"],
+                       launches_dred_plc_b1=dred_plc[1]["launches"],
                        strict_step_ms=strict_ms[big],
                        strict_step_ms_b1=strict_ms[1],
                        launches_b1=plc_runs[("flat", 1)],
@@ -1292,6 +1345,363 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def dred_phase(dev, card) -> dict:
+    """Phase 2d: DRED end to end with the shipped cond-256/256 weights, as
+    the fec-encode command runs it: superframe features of the golden
+    speech (64-frame chunks) -> DREDCodec.encode -> for every packet
+    position, quantize_payload and decode (cli.dred_payloads), at B=1 and
+    at B=1024 (stream b rotated as in codec_speech). Held against the
+    port on the CPU (B=1 and the first DRED_CPU_ROWS streams of B=1024) on
+    the card's features: symbols, PVQ states, and the features decoded on
+    the CPU from the card's symbols and states; the q0 round trip of the
+    shipped-weights test. Returns, per batch, the timings, the speech and
+    the decoded payloads. Raises RuntimeError on a failed gate."""
+    import torch
+    from lpcnet_tpu_torch import cli, convert
+    from lpcnet_tpu_torch.dred import DREDCodec, roundtrip_rms
+    params, cfg = convert.load_dred(device=dev)
+    params_cpu, _ = convert.load_dred(device="cpu")
+    dc, dc_cpu = (DREDCodec(params, cfg, device=dev),
+                  DREDCodec(params_cpu, cfg, device="cpu"))
+    n = dc.dred.num_dframes
+    print(f"[dred] shipped RDO-VAE: cond {cfg.cond_size}/{cfg.cond_size2}, "
+          f"{cfg.nb_latents} latents, {n}-dframe payloads")
+    T = np.fromfile(SPEECH, np.int16).size // (4 * FS) * 4
+    out = {}
+    for B in DRED_BATCHES:
+        speech = codec_speech(B)
+        padded = np.stack([cli._pad_to_chunks(x, T) for x in speech])
+        feats = cli.superframe_features(torch.as_tensor(padded, device=dev),
+                                        T)[..., :20]
+        dc.encode(feats[:, :16])                                     # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        zd, sd = dc.encode(feats)
+        t_enc_issue = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t_enc = time.perf_counter() - t0
+        cli.dred_payloads(dc, zd[:, :n], sd[:, :n])                  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        payloads = cli.dred_payloads(dc, zd, sd)
+        t_pay_issue = (time.perf_counter() - t0) / len(payloads)
+        torch.cuda.synchronize()
+        t_pay = (time.perf_counter() - t0) / len(payloads)
+        print(f"[dred] B={B}: encode {t_enc * 1e3:.4f} ms for the file "
+              f"({T} frames, {T * 0.01:.2f} s of audio per stream), "
+              f"{t_enc * 1e3 / (T * 0.01):.4f} ms per audio second; "
+              f"quantize_payload + decode {t_pay * 1e3:.4f} ms per payload "
+              f"of all {B} streams ({len(payloads)} payloads; host clock, "
+              f"synchronised); the host issues for "
+              f"{t_enc_issue * 1e3:.4f} and {t_pay_issue * 1e3:.4f} ms of "
+              f"them before it waits [{card}]")
+        rows = list(range(min(B, DRED_CPU_ROWS)))
+        zc, sc = dc_cpu.encode(feats[rows].cpu())
+        same_state = float((sd[rows].cpu() == sc).all(-1).float().mean())
+        syms_k, syms_c, derr = [], [], 0.0
+        for s, sym, qid, rec in payloads:
+            sym_c, _ = dc_cpu.quantize_payload(zc[:, :s])
+            syms_k.append(sym[rows].cpu())
+            syms_c.append(sym_c)
+            rec_c = dc_cpu.decode(sym[rows].cpu(), qid.cpu(),
+                                  sd[rows, s - n].cpu())
+            derr = max(derr, float((rec[rows].cpu() - rec_c).abs().max()))
+        sk, sc_ = torch.stack(syms_k), torch.stack(syms_c)
+        frac = float((sk == sc_).float().mean())
+        worst = int((sk - sc_).abs().max())
+        print(f"[dred] B={B} vs the CPU on streams {rows}: symbols equal "
+              f"{frac:.6f} (gate >= {DRED_GATE_SYMBOLS}), max |d| {worst} "
+              f"(gate <= 1); PVQ states equal on {same_state:.6f} of the "
+              f"dframes (gate >= {DRED_GATE_STATES}); features decoded from "
+              f"the same symbols and states max |d| {derr:.3e} (gate <= "
+              f"{DRED_GATE_FEATS})")
+        if not (frac >= DRED_GATE_SYMBOLS and worst <= 1
+                and same_state >= DRED_GATE_STATES
+                and derr <= DRED_GATE_FEATS):
+            raise RuntimeError(f"dred B={B}: the card disagrees with the CPU")
+        if not all(bool(torch.isfinite(r).all()) for *_, r in payloads):
+            raise RuntimeError(f"dred B={B}: decoded features not finite")
+        out[B] = {"encode_ms": t_enc * 1e3, "payload_ms": t_pay * 1e3,
+                  "payloads": payloads, "n": n, "frames": T,
+                  "speech": speech}
+    f160 = feats[:1, :160]          # stream 0 is the unrotated file
+    rms = roundtrip_rms(params, cfg, f160)
+    rms_cpu = roundtrip_rms(params_cpu, cfg, f160.cpu())
+    print(f"[dred] q0 round trip of 160 frames of stream 0: RMS {rms:.6f} "
+          f"on the card, {rms_cpu:.6f} on the CPU (gates: < 0.8, within "
+          f"2%)")
+    if not (rms < 0.8 and abs(rms - rms_cpu) <= 0.02 * rms_cpu):
+        raise RuntimeError("dred: round-trip quality gate failed")
+    return out
+
+
+def dred_fec_features(payloads, n: int, T: int):
+    """(B, T, 20) features for every frame t from the newest payload that
+    covers it: payload s holds the frames 4(s-n) .. 4s-1, so the newest of
+    the positions n .. S is s = min(S, t//4 + n)."""
+    import torch
+    S = payloads[-1][0]
+    rows = []
+    for t in range(T):
+        s = min(S, t // 4 + n)
+        rows.append(payloads[s - n][3][:, t - 4 * (s - n)])
+    return torch.stack(rows, dim=1)
+
+
+def dred_plc_phase(dev, card, dred_out, params, plc_params, zero_counts,
+                   expect_plan) -> dict:
+    """Phase 4d: PLCEngine.step over the speech of phase 2d with
+    loss_flags, at each batch of dred_out: before each step, every lost
+    stream queues (fec_add, the reference's lpcnet_plc_fec_add) the
+    features of that frame from the newest DRED payload that covers it.
+    Gates: one K3 launch per step and nothing else, under the batch's plan;
+    some lost frames concealed from DRED features; good rows equal their
+    input. Returns ms per step, launches and FEC frames per batch. Raises
+    RuntimeError on a failed gate."""
+    import torch
+    from lpcnet_tpu_torch import plc
+    from lpcnet_tpu_torch.kernels import sample_cuda
+    out = {}
+    for B, d in dred_out.items():
+        T = d["frames"]
+        pcm_in, lost = d["speech"][:, :T * FS], loss_flags(B, T)
+        fec = dred_fec_features(d["payloads"], d["n"], T)
+        eng = plc.PLCEngine(params, plc_params, device=dev)
+        eng.run(eng.init_state(B), pcm_in[:, :2 * FS], lost[:, :2])  # warm
+        pcm_t = torch.as_tensor(pcm_in, device=dev)
+        lost_t = torch.as_tensor(lost, device=dev)
+        consumed = torch.zeros((), dtype=torch.int64, device=dev)
+        torch.cuda.synchronize()
+        zero_counts()
+        outs = []
+        st = eng.init_state(B)
+        t0 = time.perf_counter()
+        for t in range(T):
+            if lost[:, t].any():
+                st = eng.fec_add(st, fec[:, t], lost_t[:, t])
+            st, o = eng.step(st, pcm_t[:, t * FS:(t + 1) * FS], lost_t[:, t])
+            # a lost frame that took a queued FEC frame resets the loss
+            # count (lpcnet_plc.c:147-166)
+            consumed += (lost_t[:, t] & (st["loss_count"] == 0)).sum()
+            outs.append(o)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(sample_cuda.launches)
+        o = torch.cat(outs, dim=1).cpu().numpy()
+        n_fec = int(consumed)
+        tag = f"DRED -> PLCEngine B={B}"
+        blend = np.concatenate([np.zeros((B, 1), bool), lost[:, :-1]], 1) \
+            & ~lost
+        good = np.repeat(~lost & ~blend, FS, axis=1)
+        good_ok = bool((o[good] == pcm_in[good]).all())
+        print(f"[dred-plc] {tag} x {T} frames: launches {counts}; lost "
+              f"{int(lost.sum())} frames, {n_fec} of them concealed from "
+              f"DRED features (gate > 0); out finite "
+              f"{bool(np.isfinite(o).all())}, max |out| {np.abs(o).max()}, "
+              f"good rows equal input {good_ok}; {wall * 1e3 / T:.4f} ms per "
+              f"step with the queueing (host clock, synchronised at the "
+              f"end) [{card}]")
+        if counts["tf_flat"] != T or sum(counts.values()) != T:
+            raise RuntimeError(f"{tag}: expected {T} tf_flat launches and "
+                               f"nothing else, got {counts}")
+        expect_plan(tag, B, T)
+        if not (n_fec > 0 and good_ok and np.isfinite(o).all()
+                and np.abs(o).max() <= 32767):
+            raise RuntimeError(f"{tag}: no FEC frame was used, or the "
+                               f"output is wrong")
+        out[B] = {"ms": wall * 1e3 / T, "launches": counts["tf_flat"],
+                  "fec_frames": n_fec}
+    return out
+
+
+def dotprod_phase(dev, card, sample_cuda) -> dict:
+    """Phase 4e: Synthesizer(backend="dotprod"), both flavours, B=4 x 2
+    frames of the golden features, on the card and on the CPU. The
+    emulation runs no hand-written kernel. On the CPU run's tables and
+    conditions, moved to the card, it gives the CPU run's pcm, excitation,
+    RNG and GRU states exactly; the card's own run has the CPU run's RNG.
+    Returns ms per frame per flavour. Raises RuntimeError on a failed
+    gate."""
+    import torch
+    from lpcnet_tpu_torch import convert
+    from lpcnet_tpu_torch.kernels import sample_dotprod
+    from lpcnet_tpu_torch.vocoder import Synthesizer
+    B, frames = DOTPROD_PATH
+    feats = tiled_features(B, frames)
+    keys = ("cond_a", "cond_b", "lpc")
+    params, params_cpu = (convert.load_lpcnet(device=dev),
+                          convert.load_lpcnet(device="cpu"))
+    out = {}
+    for su in (False, True):
+        tag = f"dotprod {'SU' if su else 'signed'} B={B}"
+        v = Synthesizer(params=params, device=dev, backend="dotprod",
+                        dotprod_su=su)
+        vc = Synthesizer(params=params_cpu, device="cpu", backend="dotprod",
+                         dotprod_su=su)
+        v.synthesize(v.reset(B, True), feats[:, :1])                 # warm
+        torch.cuda.synchronize()
+        for k in sample_cuda.launches:
+            sample_cuda.launches[k] = 0
+        t0 = time.perf_counter()
+        st, pcm = v.synthesize(v.reset(B, True), feats)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / frames
+        launched = sum(sample_cuda.launches.values())
+        t0 = time.perf_counter()
+        st_c, pcm_c = vc.synthesize(vc.reset(B, True), feats)
+        ms_cpu = (time.perf_counter() - t0) * 1e3 / frames
+        conds_c = vc.conditions(feats)
+        cond_err = max(float((v.conditions(feats)[k].cpu() - conds_c[k])
+                             .abs().max()) for k in keys)
+        tables = convert.to_device(vc.tables, dev)
+        st_h, pcm_h = sample_dotprod.synthesize_frames_dotprod(
+            tables, sample_dotprod.quantize_tables(tables, v.cfg, su),
+            {k: x.to(dev) for k, x in vc.reset(B, True).items()},
+            {k: conds_c[k].to(dev) for k in keys}, v.cfg)
+        same = {k: torch.equal(st_h[k].cpu(), st_c[k])
+                for k in ("last_exc", "rng", "gru_a", "gru_b")}
+        same["pcm"] = torch.equal(pcm_h.cpu(), pcm_c)
+        rng_ok = torch.equal(st["rng"].cpu(), st_c["rng"])
+        p = pcm.cpu().numpy()
+        frac = float((pcm.cpu() == pcm_c).float().mean())
+        print(f"[dotprod] {tag} x {frames} frames: hand-written kernel "
+              f"launches {launched}; on the CPU run's tables and conditions "
+              f"the card equals the CPU run {same}; the card's own run: rng "
+              f"equal to the CPU run's {rng_ok}, pcm equal on {frac:.6f} "
+              f"(its conditions differ from the CPU's by {cond_err:.3e}, "
+              f"which the activation quantizer can turn into a fork), "
+              f"finite {bool(np.isfinite(p).all())}, max |pcm| "
+              f"{np.abs(p).max()}; {ms:.4f} ms per frame on the card, "
+              f"{ms_cpu:.4f} on the CPU (host clock) [{card}]")
+        if launched or not (all(same.values()) and rng_ok
+                            and np.isfinite(p).all()
+                            and 0 < np.abs(p).max() <= 32767):
+            raise RuntimeError(f"{tag}: the emulation on the card is not "
+                               f"the CPU run's")
+        out[su] = {"ms": ms, "ms_cpu": ms_cpu, "pcm_equal": frac}
+    return out
+
+
+def tools_phase(card) -> dict:
+    """Phase 4f: the commands rdovae-encode, rdovae-decode, fec-encode,
+    plc-test and addlpc through cli.main in a temporary directory, on the
+    card and with --device cpu, each pair held to the tolerances of
+    tests/test_torch_tools.py; dump-weights-blob (numpy, no device) read
+    back record by record and written twice, byte-identical. Returns the
+    seconds of each run. Raises RuntimeError on a failed gate."""
+    import tempfile
+    from lpcnet_tpu_torch import cli, convert
+    from lpcnet_tpu_torch.utils import fec_packets, weights_io
+    examples = os.path.join(REPO, "examples")
+    secs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def path(name):
+            return os.path.join(tmp, name)
+
+        def both(cmd, args):
+            """The command on the card and on the CPU: (card out, cpu out)."""
+            outs = []
+            for i, dev in enumerate(("cuda", "cpu")):
+                out = path(f"{cmd}.{i}")
+                t0 = time.perf_counter()
+                rc = cli.main([cmd] + [out if a == "OUT" else a
+                                       for a in args] + ["--device", dev])
+                secs[(cmd, i)] = time.perf_counter() - t0
+                if rc != 0:
+                    raise RuntimeError(f"tools: {cmd} --device {dev} exit "
+                                       f"{rc}")
+                outs.append(out)
+            return outs
+
+        def check(cmd, ok, detail):
+            print(f"[tools] {cmd}: card vs --device cpu {detail}; "
+                  f"{secs[(cmd, 0)]:.3f} s on the card, "
+                  f"{secs[(cmd, 1)]:.3f} s on the CPU (host clock, "
+                  f"whole command) [{card}]")
+            if not ok:
+                raise RuntimeError(f"tools: {cmd} differs between the card "
+                                   f"and the CPU")
+
+        f40 = path("f40.f32")
+        np.fromfile(FEATS, np.float32)[:40 * 36].tofile(f40)
+        k, c = both("rdovae-encode", [f40, "OUT", "--quant", "7"])
+        sk, sc = np.fromfile(k, np.int16), np.fromfile(c, np.int16)
+        st_err = float(np.abs(np.fromfile(k + ".state", np.float32)
+                              - np.fromfile(c + ".state", np.float32)).max())
+        frac = float((sk == sc).mean())
+        worst = int(np.abs(sk.astype(np.int32) - sc).max())
+        check("rdovae-encode", frac >= DRED_GATE_SYMBOLS and worst <= 1
+              and st_err <= 1e-5, f"symbols equal {frac:.6f}, max |d| "
+              f"{worst}; states max |d| {st_err:.3e} (gates >= "
+              f"{DRED_GATE_SYMBOLS}, <= 1, <= 1e-5)")
+        k, c = both("rdovae-decode", [c, "OUT"])
+        err = float(np.abs(np.fromfile(k, np.float32)
+                           - np.fromfile(c, np.float32)).max())
+        check("rdovae-decode", err <= 1e-4, f"from the CPU's latent file: "
+              f"max |d| {err:.3e} (gate <= 1e-4)")
+        pcm80 = path("in.s16")
+        np.fromfile(SPEECH, np.int16)[:80 * FS].tofile(pcm80)
+        k, c = both("fec-encode", [pcm80, "OUT", "--num-redundancy", "8",
+                                   "--packets-per-fec", "2"])
+        (pk, rates_k), (pc, rates_c) = (fec_packets.read_fec_packets(k),
+                                        fec_packets.read_fec_packets(c))
+        with open(k, "rb") as a, open(c, "rb") as b:
+            same_head = a.read(14) == b.read(14)
+        err = max(float(np.abs(x - y).max()) for x, y in zip(pk, pc))
+        rates_ok = np.allclose(rates_k, rates_c, rtol=0.01, atol=0)
+        check("fec-encode", same_head and len(pk) == len(pc) > 0
+              and err <= 1e-3 and rates_ok,
+              f"header identical {same_head}, {len(pk)} / {len(pc)} "
+              f"packets, features max |d| {err:.3e} (gate <= 1e-3), rates "
+              f"{rates_k} / {rates_c} (gate: within 1%)")
+        rs = np.random.RandomState(11)
+        data = rs.randn(50, 57).astype(np.float32)
+        data[:, -1] = (rs.random_sample(50) > 0.3).astype(np.float32)
+        data.tofile(path("plc.f32"))
+        k, c = both("plc-test", [path("plc.f32"), "OUT"])
+        err = float(np.abs(np.fromfile(k, np.float32)
+                           - np.fromfile(c, np.float32)).max())
+        check("plc-test", err <= 1e-5, f"max |d| {err:.3e} (gate <= 1e-5)")
+        feats = np.fromfile(FEATS, np.float32).reshape(-1, 36).copy()
+        feats[:, 20:] = 0
+        feats.tofile(path("lpc.f32"))
+        k, c = both("addlpc", [path("lpc.f32"), "OUT"])
+        a, b = np.fromfile(k, np.float32), np.fromfile(c, np.float32)
+        err = float(np.abs(a - b).max())
+        check("addlpc", bool(np.all(np.abs(a - b) <= 1e-4 + 1e-4
+                                    * np.abs(b))),
+              f"max |d| {err:.3e} (gate: 1e-4 + 1e-4 |x|)")
+        specs = [f"{m}={os.path.join(examples, f'speech_{m}_params.bin')}"
+                 for m in ("plc", "lpcnet")]
+        blobs = []
+        for i in range(2):
+            blobs.append(path(f"blob{i}.bin"))
+            t0 = time.perf_counter()
+            if cli.main(["dump-weights-blob", blobs[-1]] + specs) != 0:
+                raise RuntimeError("tools: dump-weights-blob failed")
+            secs[("dump-weights-blob", i)] = time.perf_counter() - t0
+        with open(blobs[0], "rb") as a, open(blobs[1], "rb") as b:
+            same = a.read() == b.read()
+        raw = weights_io.read_blob(blobs[0])
+        want = {}
+        for spec in specs:
+            prefix, p = spec.split("=", 1)
+            flat = weights_io.flatten(convert.load_model_params(p),
+                                      prefix + "/")
+            want.update({f"{prefix[0]}{j:04d}": a.reshape(-1)
+                         for j, (_, a) in enumerate(sorted(flat.items()))})
+        back = raw.keys() == want.keys() and all(
+            np.array_equal(raw[r], want[r]) for r in want)
+        print(f"[tools] dump-weights-blob (numpy, no device): {len(raw)} "
+              f"records, read back equal to the checkpoints' arrays {back}, "
+              f"two runs byte-identical {same}; "
+              f"{secs[('dump-weights-blob', 0)]:.3f} s [{card}]")
+        if not (same and back):
+            raise RuntimeError("tools: dump-weights-blob is not the "
+                               "checkpoints' arrays")
+    return secs
 
 
 def print_phases(sample_cuda, v, card, cases, teacher=False) -> None:

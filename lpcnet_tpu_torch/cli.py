@@ -1,6 +1,7 @@
-"""Command line of the PyTorch/CUDA port (the `features`, `synthesis`,
-`encode`, `decode` and `plc` subcommands of lpcnet_tpu/cli.py, reference
-lpcnet_demo -features, -synthesis, -encode, -decode and -plc_file).
+"""Command line of the PyTorch/CUDA port: the inference subcommands of
+lpcnet_tpu/cli.py (reference lpcnet_demo -features, -synthesis, -encode,
+-decode, -plc_file and -addlpc, dump_weights_blob, and the DRED and PLC
+scripts of training_tf2/).
 
     python -m lpcnet_tpu_torch features in.pcm feats.f32 [--quantize-pitch]
     python -m lpcnet_tpu_torch synthesis feats.f32 out.pcm [--streaming |
@@ -10,13 +11,23 @@ lpcnet_demo -features, -synthesis, -encode, -decode and -plc_file).
         [--weights F]
     python -m lpcnet_tpu_torch plc <loss> in.pcm out.pcm [--options causal|
         causal_dc|noncausal|noncausal_dc|strict]
+    python -m lpcnet_tpu_torch plc-test in.f32 out.f32 [--weights F]
+    python -m lpcnet_tpu_torch addlpc feats.f32 out.f32
+    python -m lpcnet_tpu_torch dump-weights-blob out.bin lpcnet=ck.bin ...
+    python -m lpcnet_tpu_torch rdovae-encode feats.f32 latents.s16 [--quant Q]
+    python -m lpcnet_tpu_torch rdovae-decode latents.s16 feats.f32
+        [--quant Q]
+    python -m lpcnet_tpu_torch fec-encode in.pcm out.fec
+        [--num-redundancy N] [--packets-per-fec P]
 
-Every command takes --device (default: the card; --device cpu runs the
-plain PyTorch paths). Feature files are float32 frames of 36; audio is
-16-bit little-endian PCM at 16 kHz (headerless, or .wav on input); a
-packet is 8 bytes per 40 ms (1.6 kb/s). Omitted --weights, --plc-weights
-and --codebooks load examples/speech_lpcnet_params.bin,
-examples/speech_plc_params.bin and examples/codec_codebooks.bin.
+Every command but dump-weights-blob (numpy only) takes --device (default:
+the card; --device cpu runs the plain PyTorch paths). Feature files are
+float32 frames of 36; audio is 16-bit little-endian PCM at 16 kHz
+(headerless, or .wav on input); a packet is 8 bytes per 40 ms (1.6 kb/s).
+Omitted --weights, --plc-weights and --codebooks load
+examples/speech_lpcnet_params.bin, examples/speech_plc_params.bin (the PLC
+network, also plc-test's --weights), examples/speech_dred_params.bin (the
+DRED commands) and examples/codec_codebooks.bin.
 `synthesis` and `decode` read LPCNET_KERNEL_TABLES (f32, the default, or
 bf16: the frame kernel's embedding tables in bfloat16), as the JAX
 package's Synthesizer does.
@@ -30,7 +41,8 @@ import numpy as np
 import torch
 
 from .constants import (FRAME_SIZE, LPCNET_COMPRESSED_SIZE,
-                        LPCNET_PACKET_SAMPLES, NB_BANDS, NB_TOTAL_FEATURES)
+                        LPCNET_PACKET_SAMPLES, NB_BANDS, NB_FEATURES,
+                        NB_TOTAL_FEATURES)
 
 CHUNK_FRAMES = 64          # frames per feature-extraction or synthesize call
 DEFAULT_CODEBOOKS = os.path.join(os.path.dirname(__file__), os.pardir,
@@ -81,25 +93,33 @@ def _kernel_tables() -> str:
         else "f32"
 
 
+def superframe_features(pcm: torch.Tensor, frames: int,
+                        quantize_pitch: bool = False) -> torch.Tensor:
+    """Superframe features of (B, samples) pcm holding whole chunks
+    (_pad_to_chunks), CHUNK_FRAMES frames per compute_features call.
+    Returns the first `frames` frames, (B, frames, 36)."""
+    from . import features as F
+    state = F.init_state(pcm.shape[0], pcm.device)
+    out = []
+    step = CHUNK_FRAMES * FRAME_SIZE
+    for s0 in range(0, pcm.shape[1], step):
+        state, feats, _ = F.compute_features(
+            state, pcm[:, s0:s0 + step], quantize_pitch=quantize_pitch)
+        out.append(feats)
+    return torch.cat(out, dim=1)[:, :frames] if out else pcm.new_zeros(
+        (pcm.shape[0], 0, NB_TOTAL_FEATURES))
+
+
 def cmd_features(args) -> int:
     """PCM -> float32 feature frames (lpcnet_demo -features): superframe
     features of whole superframes, CHUNK_FRAMES frames per call."""
-    from . import features as F
     from .device import resolve_device
     dev = resolve_device(args.device)
     pcm = read_pcm(args.input)
     T = len(pcm) // FRAME_SIZE // 4 * 4
     pcm = torch.as_tensor(_pad_to_chunks(pcm, T), device=dev)
-    state = F.init_state(1, dev)
-    out = []
-    step = CHUNK_FRAMES * FRAME_SIZE
-    for s0 in range(0, pcm.shape[0], step):
-        state, feats, _ = F.compute_features(
-            state, pcm[None, s0:s0 + step], quantize_pitch=args.quantize_pitch)
-        out.append(feats[0].cpu().numpy())
-    allf = np.concatenate(out, axis=0)[:T] if out \
-        else np.zeros((0, NB_TOTAL_FEATURES), np.float32)
-    allf.astype(np.float32).tofile(args.output)
+    allf = superframe_features(pcm[None], T, args.quantize_pitch)[0]
+    allf.cpu().numpy().astype(np.float32).tofile(args.output)
     print(f"wrote {allf.shape[0]} frames x {allf.shape[1]} -> {args.output} "
           f"(on {dev})")
     return 0
@@ -295,6 +315,167 @@ def cmd_plc(args) -> int:
     return 0
 
 
+def cmd_plc_test(args) -> int:
+    """Offline PLC-network test: a feature file with a received column ->
+    reconstructed features, out = feat*received + (1-received)*pred.
+
+    The trailing column is 1 where the frame was RECEIVED: it multiplies
+    the kept features (training_tf2/test_plc.py:104-117, where it is
+    named `lost`)."""
+    from . import convert
+    from .device import resolve_device
+    from .models import plc as plc_model
+    dev = resolve_device(args.device)
+    width = 2 * NB_BANDS + NB_FEATURES + 1     # burg36 | feat20 | received
+    data = read_features(args.input, width)
+    params = convert.load_plc(args.weights, device=dev)
+    received = data[:, -1:]
+    inp = torch.as_tensor(np.concatenate(
+        [data[:, :-1] * received, received], axis=-1)[None], device=dev)
+    pred = plc_model.forward_sequence(params, inp)[0].cpu().numpy()
+    feat = data[:, 2 * NB_BANDS:-1]
+    out = feat * received + pred * (1 - received)
+    out.astype(np.float32).tofile(args.output)
+    print(f"wrote {out.shape[0]} reconstructed frames -> {args.output} "
+          f"(on {dev})")
+    return 0
+
+
+def cmd_addlpc(args) -> int:
+    """Recompute the LPC tail of a feature file from its cepstra
+    (lpcnet_demo -addlpc, src/lpcnet_demo.c:250-259)."""
+    from .device import resolve_device
+    from .ops import dsp
+    dev = resolve_device(args.device)
+    feats = read_features(args.input)
+    lpc, _ = dsp.lpc_from_cepstrum(torch.as_tensor(feats[:, :NB_BANDS],
+                                                   device=dev))
+    feats[:, NB_BANDS + 2:] = lpc.cpu().numpy()
+    feats.astype(np.float32).tofile(args.output)
+    print(f"rewrote LPC for {feats.shape[0]} frames -> {args.output} "
+          f"(on {dev})")
+    return 0
+
+
+def cmd_dump_weights_blob(args) -> int:
+    """Bundle model checkpoints into one DNNw blob, one family prefix each
+    (dump_weights_blob, src/write_lpcnet_weights.c:69-77): the records of
+    `prefix=checkpoint` are named prefix[0] + a 4-digit index, in the
+    sorted order of the prefixed parameter paths."""
+    from . import convert
+    from .utils import weights_io
+    arrays = {}
+    for spec in args.models:
+        if "=" not in spec:
+            raise ValueError(f"{spec!r}: expected prefix=checkpoint")
+        prefix, path = spec.split("=", 1)
+        flat = weights_io.flatten(convert.load_model_params(path),
+                                  prefix + "/")
+        for i, (name, a) in enumerate(sorted(flat.items())):
+            arrays[f"{prefix[:1]}{i:04d}"] = (
+                a.astype(np.float32) if a.dtype == np.float64 else a)
+    weights_io.write_blob(args.output, arrays)
+    print(f"wrote {len(arrays)} arrays -> {args.output}")
+    return 0
+
+
+def _dred_codec(args, dred_cfg=None):
+    """A DREDCodec on --device with the --weights RDO-VAE."""
+    from . import convert
+    from .dred import DREDCodec, DREDConfig
+    from .device import resolve_device
+    dev = resolve_device(args.device)
+    params, cfg = convert.load_dred(args.weights, device=dev)
+    return DREDCodec(params, cfg, dred_cfg or DREDConfig(), device=dev)
+
+
+def cmd_rdovae_encode(args) -> int:
+    """Features -> quantized latents (encode_rdovae.py): int16 symbols
+    (S, 80), one row per 20-ms dframe, and the float32 PVQ resume states
+    (S, 24) in OUTPUT.state."""
+    from .models import rdovae as rv
+    feats = read_features(args.input)[:, :NB_FEATURES]
+    T = feats.shape[0] // 4 * 4
+    dc = _dred_codec(args)
+    zd, sd = dc.encode(feats[None, :T])
+    qp = rv.quant_params(dc.params, torch.full((zd.shape[1],), args.quant,
+                                               device=dc.device), dc.cfg)
+    sym = torch.round(rv.apply_dead_zone(zd[0] * qp["scale"],
+                                         qp["dead_zone"]))
+    sym = sym.cpu().numpy().astype(np.int16)
+    sym.tofile(args.output)
+    sd[0].cpu().numpy().astype(np.float32).tofile(args.output + ".state")
+    print(f"wrote {sym.shape[0]} latent dframes -> {args.output} "
+          f"(on {dc.device})")
+    return 0
+
+
+def cmd_rdovae_decode(args) -> int:
+    """Quantized latents -> feature frames (decode_rdovae.py): the whole
+    symbol file as one sequence, from the resume state of its first dframe
+    (lpcnet_tpu/cli.py:938); features 20-35 are left 0."""
+    from .models import rdovae as rv
+    dc = _dred_codec(args)
+    sym = np.fromfile(args.input, np.int16).reshape(-1, dc.cfg.nb_latents)
+    states = np.fromfile(args.input + ".state", np.float32).reshape(
+        -1, dc.cfg.state_dim)
+    qp = rv.quant_params(dc.params, torch.full(
+        (sym.shape[0],), args.quant, device=dc.device), dc.cfg)
+    z = torch.as_tensor(sym, dtype=torch.float32,
+                        device=dc.device) / qp["scale"]
+    feats = rv.decode(dc.params, z[None],
+                      torch.as_tensor(states[None, 0], device=dc.device),
+                      dc.cfg)[0].cpu().numpy()
+    out = np.zeros((feats.shape[0], NB_TOTAL_FEATURES), np.float32)
+    out[:, :NB_FEATURES] = feats
+    out.tofile(args.output)
+    print(f"wrote {out.shape[0]} feature frames -> {args.output} "
+          f"(on {dc.device})")
+    return 0
+
+
+def dred_payloads(dc, zd: torch.Tensor, sd: torch.Tensor, step: int = 1):
+    """The redundancy payloads of the fec-encode command: for each packet
+    position s = n, n+step, ... <= S (n = num_dframes), the symbols of the
+    last n dframes quantized with the age ramp, and the features decoded
+    from them and the resume state of dframe s-n. Returns a list of
+    (s, symbols (B, n, 80) int32 newest first, quant ids (n,),
+    features (B, 4n, 20) oldest first)."""
+    n = dc.dred.num_dframes
+    out = []
+    for s in range(n, zd.shape[1] + 1, step):
+        sym, qid = dc.quantize_payload(zd[:, :s])
+        out.append((s, sym, qid, dc.decode(sym, qid, sd[:, s - n])))
+    return out
+
+
+def cmd_fec_encode(args) -> int:
+    """Audio -> superframe features -> latents -> age-ramped redundancy
+    payloads, decoded back to features -> a .fec file (fec_encoder.py).
+    The rate of a packet is the sum of its |symbols| (a proxy of bits)."""
+    from .dred import DREDConfig
+    from .utils import fec_packets
+    dc = _dred_codec(args, DREDConfig(num_dframes=args.num_redundancy))
+    pcm = read_pcm(args.input)
+    T = len(pcm) // FRAME_SIZE // 4 * 4
+    x = torch.as_tensor(_pad_to_chunks(pcm, T), device=dc.device)
+    feats = superframe_features(x[None], T)[..., :NB_FEATURES]
+    zd, sd = dc.encode(feats)
+    packets, rates = [], []
+    for _, sym, _, rec in dred_payloads(dc, zd, sd, args.packets_per_fec):
+        fr = np.zeros((rec.shape[1], NB_TOTAL_FEATURES), np.float32)
+        fr[:, :NB_FEATURES] = rec[0].cpu().numpy()
+        packets.append(fr)
+        rates.append(int(min(32767, float(sym.abs().sum()))))
+    if not packets:
+        raise ValueError(f"{args.input}: {T // 4} dframes, fewer than the "
+                         f"{args.num_redundancy} a payload carries")
+    fec_packets.write_fec_packets(args.output, packets, rates)
+    print(f"wrote {len(packets)} FEC packets ({args.num_redundancy} dframes "
+          f"each) -> {args.output} (on {dc.device})")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="lpcnet_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -357,6 +538,53 @@ def build_parser() -> argparse.ArgumentParser:
                    help="seed of the random loss pattern")
     p.add_argument("--device", default=None, help=device_help)
     p.set_defaults(fn=cmd_plc)
+    p = sub.add_parser("plc-test", help="offline PLC network feature test")
+    p.add_argument("input", help="float32 frames [burg36|feat20|received], "
+                   "last column 1 = frame received")
+    p.add_argument("output", help="float32 reconstructed features (20 per "
+                   "frame)")
+    p.add_argument("--weights", default=None,
+                   help="PLC checkpoint (default: shipped PLC network)")
+    p.add_argument("--device", default=None, help=device_help)
+    p.set_defaults(fn=cmd_plc_test)
+    p = sub.add_parser("addlpc", help="recompute the LPC tail of a feature "
+                       "file")
+    p.add_argument("input", help="float32 feature file (36 per frame)")
+    p.add_argument("output", help="float32 feature file (36 per frame)")
+    p.add_argument("--device", default=None, help=device_help)
+    p.set_defaults(fn=cmd_addlpc)
+    p = sub.add_parser("dump-weights-blob",
+                       help="bundle checkpoints into one DNNw blob")
+    p.add_argument("output", help="DNNw blob")
+    p.add_argument("models", nargs="+",
+                   help="prefix=checkpoint.bin (e.g. lpcnet=ck.bin)")
+    p.set_defaults(fn=cmd_dump_weights_blob)
+    dred_help = ("RDO-VAE checkpoint: save_params or training blob, "
+                 "reference .pth/.pt, or wexchange directory (default: "
+                 "examples/speech_dred_params.bin)")
+    for name, helptext, fn in (
+            ("rdovae-encode", "features -> quantized latents",
+             cmd_rdovae_encode),
+            ("rdovae-decode", "quantized latents -> features",
+             cmd_rdovae_decode)):
+        p = sub.add_parser(name, help=helptext)
+        p.add_argument("input")
+        p.add_argument("output")
+        p.add_argument("--weights", default=None, help=dred_help)
+        p.add_argument("--quant", type=int, default=15,
+                       help="quant level of every dframe (0-15)")
+        p.add_argument("--device", default=None, help=device_help)
+        p.set_defaults(fn=fn)
+    p = sub.add_parser("fec-encode", help="audio -> DRED .fec redundancy")
+    p.add_argument("input", help="s16le PCM (or .wav) input")
+    p.add_argument("output", help=".fec file")
+    p.add_argument("--weights", default=None, help=dred_help)
+    p.add_argument("--num-redundancy", type=int, default=16,
+                   help="dframes per payload")
+    p.add_argument("--packets-per-fec", type=int, default=1,
+                   help="dframes between payloads")
+    p.add_argument("--device", default=None, help=device_help)
+    p.set_defaults(fn=cmd_fec_encode)
     return ap
 
 

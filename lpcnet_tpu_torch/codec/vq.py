@@ -16,14 +16,12 @@ from typing import Tuple
 import torch
 
 from ..constants import FORBIDDEN_INTERP, MULTI_MASK, NB_BANDS
+from ..device import refuse_tf32
 
 
 def _dists(x: torch.Tensor, cb: torch.Tensor) -> torch.Tensor:
     """Squared L2 distances: x (..., D) vs cb (K, D) -> (..., K)."""
-    if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError("the codec's distances need float32 matmuls; "
-                           "torch.backends.cuda.matmul.allow_tf32 is on, "
-                           "and TF32 flips VQ choices")
+    refuse_tf32(x, "the codec's distances (TF32 flips VQ choices)")
     x2 = (x * x).sum(-1, keepdim=True)
     c2 = (cb * cb).sum(-1)
     return x2 - 2.0 * (x @ cb.T) + c2

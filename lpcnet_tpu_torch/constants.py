@@ -54,4 +54,12 @@ PLC_DENSE_SIZE = 128
 PLC_GRU_SIZE = 256
 PLC_MAX_FEC = 100
 
+# --- DRED / RDO-VAE (training_tf2/train_rdovae.py:142-148) ---
+DRED_NUM_FEATURES = 20
+DRED_LATENT_DIM = 80
+DRED_STATE_DIM = 24
+DRED_COND_SIZE = 1024
+DRED_PVQ_K = 82
+DRED_NUM_QUANT_LEVELS = 16
+
 LOG256 = 5.5451774445

@@ -16,6 +16,7 @@ from .utils import checkpoint, weights_io
 _EXAMPLES = os.path.join(os.path.dirname(__file__), os.pardir, "examples")
 DEFAULT_LPCNET = os.path.join(_EXAMPLES, "speech_lpcnet_params.bin")
 DEFAULT_PLC = os.path.join(_EXAMPLES, "speech_plc_params.bin")
+DEFAULT_DRED = os.path.join(_EXAMPLES, "speech_dred_params.bin")
 
 
 def params_from_numpy(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
@@ -29,6 +30,13 @@ def params_from_numpy(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
         return torch.tensor(np.asarray(node, np.float32), device=dev)
 
     return conv(tree)
+
+
+def to_device(tree: Dict[str, Any], device) -> Dict[str, Any]:
+    """The same nesting of tensors as contiguous float32 on `device`."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    return tree.to(device=device, dtype=torch.float32).contiguous()
 
 
 def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
@@ -58,3 +66,26 @@ def load_plc(path: Optional[str] = None, device=None) -> Dict[str, Any]:
     """PLC-network parameters from a save_params or training checkpoint;
     path None loads the shipped examples/speech_plc_params.bin."""
     return params_from_numpy(load_model_params(path or DEFAULT_PLC), device)
+
+
+def load_dred(path: Optional[str] = None, device=None):
+    """RDO-VAE parameters and config (the port of lpcnet_tpu/cli.py::
+    load_dred_model); path None loads the shipped
+    examples/speech_dred_params.bin. A .pth/.pt file is a reference torch
+    trainer checkpoint and a directory a wexchange numpy export, both read
+    by utils/import_torch.py; anything else is a save_params or training
+    checkpoint, whose cond geometry is read from its kernel shapes.
+    Returns (params on `device`, RDOVAEConfig)."""
+    from .models import rdovae as rv
+    from .utils import import_torch
+    path = path or DEFAULT_DRED
+    if path.endswith((".pth", ".pt")):
+        tree, cfg = import_torch.import_rdovae_torch(path)
+    elif os.path.isdir(path):
+        tree, cfg = import_torch.import_rdovae_numpy_dir(path)
+    else:
+        tree = load_model_params(path)
+        enc = tree["enc"]
+        cfg = rv.RDOVAEConfig(cond_size=int(np.shape(enc["gru2"]["wr"])[0]),
+                              cond_size2=int(np.shape(enc["dense1"]["w"])[1]))
+    return params_from_numpy(tree, device), cfg

@@ -40,6 +40,21 @@ def gru_apply(p, h, x, act="tanh", approx=False):
                      approx)
 
 
+def gru_sequence(p, x, h0, act="tanh", approx=False):
+    """Reset-after GRU over a sequence: x (B, T, nin), h0 (B, N) ->
+    (B, T, N), the state after each step. The input product is taken once
+    for the whole sequence, then gru_gates runs step by step (the scan of
+    lpcnet_tpu/models/rdovae.py::_gru_seq and models/plc.py::
+    forward_sequence)."""
+    zrh = x @ p["wi"] + p["bi"]
+    h, hs = h0, []
+    for t in range(x.shape[1]):
+        h = gru_gates(h, zrh[:, t], h @ p["wr"] + p["br"], act, approx)
+        hs.append(h)
+    return torch.stack(hs, dim=1) if hs else zrh.new_zeros(
+        (x.shape[0], 0, h0.shape[-1]))
+
+
 def conv1d_step(p, mem, x, act="tanh", approx=False):
     """Streaming conv step with a delay line (nnet.c compute_conv1d:
     452-470). mem: (B, k-1, nin) past inputs; x: (B, nin) the current one.

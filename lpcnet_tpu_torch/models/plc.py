@@ -42,3 +42,18 @@ def step(params, net_state, x, cfg: PLCConfig = PLCConfig()):
     out = layers.dense_apply(params["out"], g2, "linear", ap)
     boost = torch.clamp(out[..., 19:] + 0.1, max=0.5)
     return {"gru1": g1, "gru2": g2}, torch.cat([out[..., :19], boost], -1)
+
+
+def forward_sequence(params, xs, cfg: PLCConfig = PLCConfig(),
+                     net_state=None):
+    """The training-time forward over (B, T, 57) -> (B, T, 20), WITHOUT the
+    inference-only correlation boost of step (the Keras training graph,
+    lpcnet_plc.py:94-181)."""
+    ap = cfg.approx
+    if net_state is None:
+        net_state = init_net_state(xs.shape[0], cfg, xs.device)
+    h = layers.dense_apply(params["dense1"], xs, "tanh", ap)
+    g1 = layers.gru_sequence(params["gru1"], h, net_state["gru1"], approx=ap)
+    g2 = layers.gru_sequence(params["gru2"], g1, net_state["gru2"],
+                             approx=ap)
+    return layers.dense_apply(params["out"], g2, "linear", ap)

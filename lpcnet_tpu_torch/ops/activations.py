@@ -15,7 +15,8 @@ def tanh_approx(x: torch.Tensor) -> torch.Tensor:
     x = x.to(torch.float32)
     sign = torch.where(x < 0, -1.0, 1.0).to(torch.float32)
     ax = torch.abs(x)
-    i = torch.floor(0.5 + 25.0 * ax).to(torch.int64).clamp(0, 200)
+    # clamped before the conversion, which overflows above 2^63
+    i = torch.clamp(torch.floor(0.5 + 25.0 * ax), 0, 200).to(torch.int64)
     dx = ax - 0.04 * i.to(torch.float32)
     y = torch.as_tensor(TANSIG_TABLE, device=x.device)[i]
     dy = 1.0 - y * y

@@ -47,6 +47,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from . import convert
 from . import features as F
 from .constants import (FRAME_SIZE, LPC_ORDER, NB_BANDS, NB_FEATURES,
                         NB_TOTAL_FEATURES, PLC_MAX_FEC, TRAINING_OFFSET)
@@ -65,12 +66,6 @@ DC_CONST = 0.003
 @dataclasses.dataclass(frozen=True)
 class PLCOptions:
     remove_dc: bool = False
-
-
-def _to(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
-    return tree.to(device=device, dtype=torch.float32).contiguous()
 
 
 def _sel(mask: torch.Tensor, a, b):
@@ -147,8 +142,8 @@ class _Engine:
             raise ValueError(f"variant must be one of {sample_cuda.VARIANTS}")
         self.cfg = cfg or self._default_cfg()
         self.plc_cfg = plc_cfg or plc_model.PLCConfig()
-        self.params = _to(lpcnet_params, self.device)
-        self.plc_params = _to(plc_params, self.device)
+        self.params = convert.to_device(lpcnet_params, self.device)
+        self.plc_params = convert.to_device(plc_params, self.device)
         self.tables = lpcnet_model.precompute_sample_tables(self.params,
                                                             self.cfg)
         self.options = options

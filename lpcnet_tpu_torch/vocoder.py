@@ -11,6 +11,9 @@ On a CUDA device every frame of synthesize runs the hand-written frame
 kernel and every frame of synthesize_teacher / synthesize_streaming one
 synth_samples launch (kernels/sample_cuda.py); device="cpu" runs the plain
 PyTorch loops. synthesize_temperature runs the plain loop on either device.
+Synthesizer(backend="dotprod") runs synthesize and synthesize_streaming
+through the emulation of the reference's int8 DOT_PROD arithmetic
+(kernels/sample_dotprod.py, plain PyTorch) on either device.
 Synthesizer(tables="bf16") gives synthesize's frame kernel bfloat16
 embedding tables (the JAX package's LPCNET_KERNEL_TABLES=bf16); every other
 mode keeps float32 tables, as in the JAX package.
@@ -21,17 +24,19 @@ import torch
 
 from . import convert
 from .device import resolve_device
-from .kernels import sample_cuda, sample_scan
+from .kernels import sample_cuda, sample_dotprod, sample_scan
 from .models import lpcnet
 from .ops import kiss99
 
 TABLE_TYPES = ("f32", "bf16")
+BACKENDS = ("auto", "dotprod")
 
 
 class Synthesizer:
     def __init__(self, cfg: Optional[lpcnet.LPCNetConfig] = None,
                  params: Optional[Dict[str, Any]] = None, device=None,
-                 variant: str = "flat", tables: str = "f32"):
+                 variant: str = "flat", tables: str = "f32",
+                 backend: str = "auto", dotprod_su: bool = False):
         """params: the port's parameter dict (convert.load_lpcnet /
         params_from_numpy); None loads the shipped checkpoint. device: None
         means the card, and raises where there is none. variant: the frame
@@ -43,15 +48,29 @@ class Synthesizer:
         rounded to nearest even, made once; the JAX package reads it from
         LPCNET_KERNEL_TABLES). bf16 tables are a reduced-precision model:
         other bits than f32, the same in every variant. On the CPU
-        synthesize runs the plain loop on the rounded tables widened."""
+        synthesize runs the plain loop on the rounded tables widened.
+        backend: 'auto' (the hand-written kernels on the card, the plain
+        loops on the CPU) or 'dotprod' (synthesize and synthesize_streaming
+        emulate the reference's int8 DOT_PROD arithmetic exactly, in plain
+        PyTorch on the synthesizer's device; float32 tables; teacher and
+        temperature synthesis are the same as under 'auto', as in the JAX
+        package). dotprod_su: the unsigned+SU-bias AVX/NEON flavour of
+        dotprod instead of the signed portable one."""
         self.device = resolve_device(device)
         if variant not in sample_cuda.FRAME_VARIANTS:
             raise ValueError(
                 f"variant must be one of {sample_cuda.FRAME_VARIANTS}")
+        if backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}, not "
+                             f"{backend!r}")
+        if backend == "dotprod" and tables != "f32":
+            raise ValueError("the dotprod backend takes float32 tables")
+        if dotprod_su and backend != "dotprod":
+            raise ValueError("dotprod_su is a flavour of backend='dotprod'")
         self.cfg = cfg or lpcnet.LPCNetConfig()
         if params is None:
             params = convert.load_lpcnet(device=self.device)
-        self.params = _to(params, self.device)
+        self.params = convert.to_device(params, self.device)
         if tables not in TABLE_TYPES:
             raise ValueError(f"tables must be one of {TABLE_TYPES}, not "
                              f"{tables!r}")
@@ -64,6 +83,10 @@ class Synthesizer:
         # synth_samples has the two samplers only; as in the JAX package
         # anything but 'flat' maps to the walked tree
         self.tf_variant = "flat" if variant == "flat" else "base"
+        self.backend = backend
+        if backend == "dotprod":
+            self.qtables = sample_dotprod.quantize_tables(
+                self.tables, self.cfg, su_bias=dotprod_su)
 
     def reset(self, batch: int, per_stream_rng: bool = False):
         """Fresh per-stream state (lpcnet_reset, lpcnet.c:174-182)."""
@@ -82,6 +105,9 @@ class Synthesizer:
         """features: (B, T, 20..36) -> (new_state, pcm (B, T*160) float32
         of rounded int16-range samples)."""
         conds = self.conditions(features)
+        if self.backend == "dotprod":
+            return sample_dotprod.synthesize_frames_dotprod(
+                self.tables, self.qtables, state, conds, self.cfg)
         return sample_cuda.synthesize_frames(self.frame_tables, state, conds,
                                              self.cfg, variant=self.variant)
 
@@ -144,7 +170,8 @@ class Synthesizer:
         LPC pipelining, and the first FEATURES_DELAY frames emitted as
         silence WITHOUT advancing the sample network or the RNG
         (lpcnet_synthesize_tail_impl, lpcnet.c:239-243). Per frame: one
-        frame_net_step and one free-run synth_samples call of 160 samples.
+        frame_net_step and one free-run synth_samples call of 160 samples
+        (under backend='dotprod', 160 quantized steps).
         The batched `synthesize` uses same-padded convs, whose conditioning
         alignment differs from the C's causal delay line.
         features (B, T, >=20). Returns (new_state, pcm (B, T*160))."""
@@ -156,11 +183,16 @@ class Synthesizer:
         for t in range(f.shape[1]):
             fnet, cond = lpcnet.frame_net_step(self.params, self.tables,
                                                fnet, f[:, t], cfg)
-            new_synth, out = sample_cuda.synth_samples(
-                self.tables, synth,
-                {k: cond[k].contiguous() for k in ("cond_a", "cond_b",
-                                                   "lpc")},
-                cfg, cfg.frame_size, variant=self.tf_variant)
+            cond = {k: cond[k].contiguous() for k in ("cond_a", "cond_b",
+                                                      "lpc")}
+            if self.backend == "dotprod":
+                new_synth, out = sample_dotprod.synth_samples_dotprod(
+                    self.tables, self.qtables, synth, cond, cfg,
+                    cfg.frame_size)
+            else:
+                new_synth, out = sample_cuda.synth_samples(
+                    self.tables, synth, cond, cfg, cfg.frame_size,
+                    variant=self.tf_variant)
             warm = fnet["frame_count"] > cfg.lookahead           # (B,)
             synth = {k: torch.where(
                 warm.reshape((-1,) + (1,) * (v.dim() - 1)), v, synth[k])
@@ -168,9 +200,3 @@ class Synthesizer:
             pcm.append(torch.where(warm[:, None], out, 0.0))
         out = torch.cat(pcm, dim=1) if pcm else f.new_zeros((f.shape[0], 0))
         return {"synth": synth, "fnet": fnet}, out
-
-
-def _to(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
-    return tree.to(device=device, dtype=torch.float32).contiguous()

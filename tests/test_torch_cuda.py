@@ -343,3 +343,90 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
         sample_cuda.synthesize_frame(dict(voc.tables, tbl_exc=tb["tbl_exc"]),
                                      state, cond["cond_a"], cond["cond_b"],
                                      cond["lpc"], voc.cfg)
+
+
+# ---------------------------------------------- DRED and DOT_PROD on the card
+
+DRED_GATE_SYMBOLS, DRED_GATE_STATES = 0.995, 0.99
+
+
+@pytest.mark.cuda
+def test_dred_on_card_matches_cpu(card):
+    """DREDCodec with the shipped weights, 3 streams x 40 frames of the
+    reference features: latents within 1e-4 of the CPU's, symbols of every
+    payload >= 99.5% equal and within 1, PVQ states equal on >= 99% of the
+    dframes, and the features decoded from the same symbols and state
+    within 1e-3."""
+    from lpcnet_tpu_torch import convert
+    from lpcnet_tpu_torch.dred import DREDCodec, DREDConfig
+    params, cfg = convert.load_dred(None, device="cpu")
+    feats = np.stack([FEATS[o:o + 40, :20] for o in (0, 50, 100)])
+    cfg8 = DREDConfig(num_dframes=8)
+    dc_k = DREDCodec(params, cfg, cfg8, device=card)
+    dc_c = DREDCodec(params, cfg, cfg8, device="cpu")
+    zk, sk = dc_k.encode(feats)
+    zc, sc = dc_c.encode(feats)
+    assert float((zk.cpu() - zc).abs().max()) <= 1e-4
+    same_state = (sk.cpu() == sc).all(-1).float().mean()
+    assert float(same_state) >= DRED_GATE_STATES
+    syms_k, syms_c = [], []
+    for s in range(8, zc.shape[1] + 1):
+        sym_k, qid = dc_k.quantize_payload(zk[:, :s])
+        sym_c, _ = dc_c.quantize_payload(zc[:, :s])
+        syms_k.append(sym_k.cpu())
+        syms_c.append(sym_c)
+        dec_k = dc_k.decode(sym_c.to(card), qid, sc[:, s - 8].to(card))
+        dec_c = dc_c.decode(sym_c, qid.cpu(), sc[:, s - 8])
+        assert float((dec_k.cpu() - dec_c).abs().max()) <= 1e-3
+    sk_all, sc_all = torch.stack(syms_k), torch.stack(syms_c)
+    assert int((sk_all - sc_all).abs().max()) <= 1
+    assert float((sk_all == sc_all).float().mean()) >= DRED_GATE_SYMBOLS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("su", [False, True])
+def test_dotprod_on_card_equals_cpu(card, su):
+    """The DOT_PROD emulation on the card, on the CPU's tables and frame
+    conditions moved there: pcm, exc, rng and GRU states exact against the
+    CPU run (B=2 x 1 frame)."""
+    from lpcnet_tpu_torch import convert
+    from lpcnet_tpu_torch.kernels import sample_dotprod
+    voc = Synthesizer(device="cpu", backend="dotprod", dotprod_su=su)
+    conds = {k: v for k, v in voc.conditions(
+        np.stack([FEATS[10:11], FEATS[40:41]])).items()
+        if k in ("cond_a", "cond_b", "lpc")}
+    st0 = voc.reset(2, per_stream_rng=True)
+    st_c, pcm_c = sample_dotprod.synthesize_frames_dotprod(
+        voc.tables, voc.qtables, st0, conds, voc.cfg)
+    tables = convert.to_device(voc.tables, card)
+    q = sample_dotprod.quantize_tables(tables, voc.cfg, su_bias=su)
+    st_k, pcm_k = sample_dotprod.synthesize_frames_dotprod(
+        tables, q, {k: v.to(card) for k, v in st0.items()},
+        {k: v.to(card) for k, v in conds.items()}, voc.cfg)
+    assert torch.equal(pcm_k.cpu(), pcm_c)
+    for k in ("last_exc", "rng", "gru_a", "gru_b", "deemph"):
+        assert torch.equal(st_k[k].cpu(), st_c[k]), k
+
+
+@pytest.mark.cuda
+def test_tf32_is_refused_on_the_card(card, monkeypatch):
+    """With TF32 allowed in float32 matmuls the RDO-VAE, the DOT_PROD
+    group dots and the codec's VQ distances raise instead of running."""
+    from lpcnet_tpu_torch import convert
+    from lpcnet_tpu_torch.codec import vq
+    from lpcnet_tpu_torch.kernels import sample_dotprod
+    from lpcnet_tpu_torch.models import rdovae
+    params, cfg = convert.load_dred(None, device=card)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    with pytest.raises(RuntimeError, match="allow_tf32"):
+        rdovae.encode(params, torch.zeros((1, 8, 20), device=card), cfg)
+    with pytest.raises(RuntimeError, match="allow_tf32"):
+        rdovae.decode(params, torch.zeros((1, 2, 80), device=card),
+                      torch.zeros((1, 24), device=card), cfg)
+    with pytest.raises(RuntimeError, match="allow_tf32"):
+        sample_dotprod._qdot(torch.zeros(12, device=card),
+                             torch.zeros((2, 4, 12), device=card),
+                             torch.zeros((1, 8), device=card), False)
+    with pytest.raises(RuntimeError, match="allow_tf32"):
+        vq.vq_nearest(torch.zeros((4, 18), device=card),
+                      torch.zeros((1, 18), device=card))
