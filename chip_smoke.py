@@ -105,6 +105,24 @@ Phases, each fatal on failure:
                addlpc through cli.main in a temporary directory, on the card
                and with --device cpu, held to the tolerances of
                tests/test_torch_tools.py; dump-weights-blob read back.
+  4g. train  - training end to end: dump-data train on the golden speech
+               (24 augmentation passes batched, ~4800 frames) on the card
+               and with --device cpu (features within 1e-4, sig_out exact,
+               sig_in equal >= 0.95, RMS of the difference <= 1% of the
+               signal's) and dump-data btrain (16 passes);
+               train-lpcnet at LPCNetConfig(): one noise-free step on the
+               card against the host CPU at B=4 x 2400 (loss relative
+               1e-5, gradients within 1e-4 of each leaf's largest entry,
+               TF32 refused), 8 steps on one batch of 32 with the loss
+               falling, then the command for 2 epochs of 3 steps and its
+               --resume (parameters restored bit for bit, step and Adam
+               counts continued); train-plc (PLCConfig(), seq 200 x 8),
+               train-rdovae (cond 1024/256, seq 400 x 8) and vq-train at
+               the shipped sizes (--iters 1 --final-iters 2) through their
+               commands. [train] lines: ms per step and training samples
+               per s, peak memory, s per dump-data pass, vq-train s,
+               whether the native library loaded or was built. No sample
+               kernel launches in this phase.
   5. holds   - for every distinct (kernel, argument set, nsamples, batch)
                that phases 3 to 4d launched, the arguments of its last
                launch in the run go through the kernel and through its
@@ -186,6 +204,18 @@ DRED_BATCHES = (1, 1024)
 DRED_CPU_ROWS = 2
 DRED_GATE_SYMBOLS, DRED_GATE_STATES, DRED_GATE_FEATS = 0.995, 0.99, 1e-3
 DOTPROD_PATH = (4, 2)    # (streams, frames) of the DOT_PROD emulation
+# training: augmentation passes of the corpus (~4800 frames) and of the PLC
+# corpus, the LPCNet batch and steps, and the PLC and RDO-VAE sequence
+# lengths and batches, cut so that the corpus covers them
+TRAIN_PASSES, PLC_PASSES = 24, 16
+# sig_in feeds the mu-law of its own LPC prediction back (dump_data.c:
+# 84-108): an LPC coefficient 1e-5 apart (float sums in another order) can
+# flip one excitation step, after which the stream runs apart for a while,
+# so the card's sig_in is held to the CPU's by fraction and by RMS
+SIG_IN_EQUAL, SIG_IN_RMS = 0.95, 1e-2
+TRAIN_BATCH, TRAIN_STEPS = 32, 8
+PLC_SEQ, PLC_BATCH = 200, 8
+RDOVAE_SEQ, RDOVAE_BATCH = 400, 8
 CHUNK_FRAMES = 64      # frames per call of the encode and decode commands
 BOUNDARY_FRAMES = 10   # frames of the synthesis run at the plan boundary
 GATE_FRAMES = 1     # frames of each synthesis run held against the plain one
@@ -974,6 +1004,13 @@ def main() -> int:
     dotprod_phase(dev, card, sample_cuda)
     phase("4f tools")
     tools_phase(card)
+    # ---- 4g. training; no hand-written kernel on its path
+    phase("4g train")
+    before = dict(sample_cuda.launches)
+    train_phase(dev, card)
+    if dict(sample_cuda.launches) != before:
+        raise RuntimeError("train: the training path launched a sample "
+                           "kernel")
 
     # ---- 5. every launched (kernel, argument set, nsamples, batch) held
     # against its plain version on the last launch's own arguments
@@ -1702,6 +1739,242 @@ def tools_phase(card) -> dict:
             raise RuntimeError("tools: dump-weights-blob is not the "
                                "checkpoints' arrays")
     return secs
+
+
+def train_phase(dev, card) -> None:
+    """Phase 4g: training end to end on the card (no hand-written kernel
+    runs on this path: the recurrences are autograd over eager PyTorch).
+    The corpus: dump-data train on the golden speech, TRAIN_PASSES
+    augmentation passes as one batched feature stream, on the card and
+    with --device cpu (features within 1e-4, sig_out exact, sig_in held
+    by SIG_IN_EQUAL and SIG_IN_RMS), and dump-data btrain for PLC. train-lpcnet at
+    LPCNetConfig(): one noise-free step on the card against the same step
+    on the host's CPU at B=4 (loss relative 1e-5, every gradient leaf
+    within 1e-4 of its largest entry), TRAIN_STEPS steps on one batch of
+    32 with the loss falling, then the command for 2 epochs of 3 steps
+    and a --resume of its last checkpoint (the parameters restored bit
+    for bit, the step count continued). train-plc at PLCConfig(),
+    train-rdovae at cond 1024/256 and vq-train at the shipped sizes, each
+    through its command and its steps timed. Raises RuntimeError on a
+    failed gate."""
+    import tempfile
+    import torch
+    from lpcnet_tpu_torch import cli, convert
+    from lpcnet_tpu_torch import data as D
+    from lpcnet_tpu_torch.models import lpcnet as lpcnet_model
+    from lpcnet_tpu_torch.models import plc as plc_model
+    from lpcnet_tpu_torch.models import rdovae as rv
+    from lpcnet_tpu_torch.training import (lpcnet_task, optim, plc_task,
+                                           rdovae_task)
+    from lpcnet_tpu_torch.utils import checkpoint, native
+    card_dev = str(dev)
+
+    def line(msg):
+        print(f"[train] {msg} [{card}]")
+
+    def run(argv):
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        if rc != 0:
+            raise RuntimeError(f"train: {' '.join(argv[:2])} exit {rc}")
+        return time.perf_counter() - t0
+
+    def timed_steps(step, n):
+        """ms per step of n steps after one warm-up step, and the peak
+        memory of the steps (host clock, synchronised)."""
+        step()
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize(dev)
+        return ((time.perf_counter() - t0) * 1e3 / n,
+                torch.cuda.max_memory_allocated(dev))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def path(name):
+            return os.path.join(tmp, name)
+
+        # ---- the corpus, on the card and on the CPU
+        secs = [run(["dump-data", "train", SPEECH, path(f"f{i}.f32"),
+                     path(f"d{i}.s16"), "--passes", str(TRAIN_PASSES),
+                     "--batch-passes", str(TRAIN_PASSES), "--device", dv])
+                for i, dv in enumerate((card_dev, "cpu"))]
+        lib = native.SHIPPED if native.NATIVE.how == "loaded" \
+            else native.BUILT
+        line(f"native library {native.NATIVE.how}: {lib}")
+        feats = cli.read_features(path("f0.f32"))
+        data = np.fromfile(path("d0.s16"), np.int16).reshape(-1, 2)
+        f_cpu = cli.read_features(path("f1.f32"))
+        d_cpu = np.fromfile(path("d1.s16"), np.int16).reshape(-1, 2)
+        ferr = float(np.abs(feats - f_cpu).max())
+        same_out = bool(np.array_equal(data[:, 1], d_cpu[:, 1]))
+        d = np.abs(data[:, 0].astype(np.int64) - d_cpu[:, 0])
+        sig_in = float((d == 0).mean())
+        rms = float(np.sqrt((d ** 2.0).mean()
+                            / (d_cpu[:, 0] ** 2.0).mean()))
+        line(f"dump-data train, {TRAIN_PASSES} passes batched: "
+             f"{feats.shape[0]} frames; {secs[0] / TRAIN_PASSES:.3f} s per "
+             f"pass on the card, {secs[1] / TRAIN_PASSES:.3f} on the CPU "
+             f"(host clock, whole command); card vs CPU: features max |d| "
+             f"{ferr:.3e} (gate 1e-4), sig_out equal {same_out}, sig_in "
+             f"equal {sig_in:.6f} (gate >= {SIG_IN_EQUAL}), within 1 "
+             f"{float((d <= 1).mean()):.6f}, max |d| {int(d.max())}, RMS "
+             f"of the difference {rms:.2e} of the signal's (gate <= "
+             f"{SIG_IN_RMS})")
+        if not (ferr <= 1e-4 and same_out and sig_in >= SIG_IN_EQUAL
+                and rms <= SIG_IN_RMS):
+            raise RuntimeError("train: the card's corpus is not the CPU's")
+        sec = run(["dump-data", "btrain", SPEECH, path("b.f32"),
+                   path("b.s16"), "--passes", str(PLC_PASSES), "--seed",
+                   "100", "--device", card_dev])
+        line(f"dump-data btrain, {PLC_PASSES} passes: {sec / PLC_PASSES:.3f} "
+             f"s per pass on the card")
+
+        # ---- train-lpcnet at full width: one step, card against CPU
+        cfg = lpcnet_model.LPCNetConfig()
+        init = lpcnet_model.init_params(torch.Generator().manual_seed(0),
+                                        cfg)
+        batches = D.window_batches(feats, data, batch_size=TRAIN_BATCH,
+                                   rng=np.random.RandomState(0))
+        big = next(batches)
+        small = {k: v[:4] for k, v in big.items()}
+        grads = {}
+        for dv in (card_dev, "cpu"):
+            (loss, _), g = optim.value_and_grad(
+                lambda p: lpcnet_task.loss_fn(
+                    p, {k: torch.as_tensor(v, device=dv)
+                        for k, v in small.items()}, cfg),
+                convert.to_device(init, dv))
+            grads[dv] = (float(loss), [x.cpu().numpy()
+                                       for x in optim.tree_leaves(g)])
+        rel = abs(grads[card_dev][0] / grads["cpu"][0] - 1)
+        worst = max(float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+                    for a, b in zip(grads[card_dev][1], grads["cpu"][1]))
+        line(f"train-lpcnet LPCNetConfig() one noise-free step at B=4 x "
+             f"{small['sig_in'].shape[1]}: loss card {grads[card_dev][0]:.7f} "
+             f"CPU {grads['cpu'][0]:.7f} (relative {rel:.2e}, gate 1e-5); "
+             f"worst gradient leaf max|d| / max|g| {worst:.2e} (gate 1e-4)")
+        if not (rel <= 1e-5 and worst <= 1e-4):
+            raise RuntimeError("train: the card's gradients are not the "
+                               "CPU's")
+
+        # ---- TRAIN_STEPS steps on one batch of 32, timed
+        opt = lpcnet_task.make_optimizer()
+        st = {"p": convert.to_device(init, dev)}
+        st["s"] = opt.init(st["p"])
+        gen = torch.Generator(device=dev).manual_seed(1)
+        tb = {k: torch.as_tensor(v, device=dev) for k, v in big.items()}
+        losses = []
+
+        def lpc_step():
+            st["p"], st["s"], m = lpcnet_task.train_step(
+                st["p"], st["s"], tb, cfg, opt, gen)
+            losses.append(float(m["loss"]))
+
+        ms, mem = timed_steps(lpc_step, TRAIN_STEPS - 1)
+        S = big["sig_in"].shape[1]
+        line(f"train-lpcnet {TRAIN_STEPS} steps on one batch of "
+             f"{TRAIN_BATCH} x {S}: loss {losses[0]:.4f} -> "
+             f"{losses[-1]:.4f}; {ms:.1f} ms per step, "
+             f"{TRAIN_BATCH * S / ms * 1e3:.0f} training samples per s; "
+             f"max memory allocated {mem / 2**30:.2f} GiB")
+        if not losses[-1] < losses[0]:
+            raise RuntimeError(f"train: the loss did not fall: {losses}")
+
+        # ---- the command: 2 epochs of 3 steps, then --resume
+        run_dir = path("lpcnet")
+        argv = ["train-lpcnet", path("f0.f32"), path("d0.s16"), run_dir,
+                "--device", card_dev]
+        sec = run(argv + ["--epochs", "2", "--steps-per-epoch", "3"])
+        ck = os.path.join(run_dir, "ckpt_001.bin")
+        tree, leaves, step, _ = checkpoint.load_training(ck)
+        args = cli.build_parser().parse_args(argv + ["--resume", ck])
+        params, state, step0, epoch0 = cli._start(args, opt, None, dev)
+        exact = all(np.array_equal(a.cpu().numpy(), b) for a, b in zip(
+            optim.tree_leaves(params), optim.tree_leaves(tree)))
+        run(argv + ["--resume", ck, "--epochs", "1", "--steps-per-epoch",
+                    "1"])
+        step2 = checkpoint.load_training(
+            os.path.join(run_dir, "ckpt_002.bin"))[2]
+        line(f"train-lpcnet --epochs 2 --steps-per-epoch 3: {sec:.1f} s; "
+             f"--resume: parameters restored bit for bit {exact}, step "
+             f"{step0} (saved {step}), optimizer counts {state['count']}/"
+             f"{state['sched_count']}, epoch {epoch0}; one more step -> "
+             f"step {step2}")
+        if not (exact and step0 == step == 6 and state["count"] == 6
+                and state["sched_count"] == 6 and epoch0 == 2
+                and step2 == 7):
+            raise RuntimeError("train: train-lpcnet --resume is not exact")
+
+        # ---- train-plc at PLCConfig(), seq-len and batch cut to the corpus
+        pcfg = plc_model.PLCConfig()
+        raw = np.fromfile(path("b.f32"), np.float32).reshape(-1, 72)[:, :56]
+        T, B = PLC_SEQ, PLC_BATCH
+        pf = torch.as_tensor(raw[:B * T].reshape(B, T, 56), device=dev)
+        lost = torch.as_tensor(
+            np.random.RandomState(0).uniform(size=(B, T)) > 0.2, device=dev)
+        popt = plc_task.make_optimizer()
+        pst = {"p": convert.to_device(
+            plc_model.init_params(torch.Generator().manual_seed(0), pcfg),
+            dev)}
+        pst["s"] = popt.init(pst["p"])
+        pgen = torch.Generator(device=dev).manual_seed(1)
+
+        def plc_step():
+            pst["p"], pst["s"], _ = plc_task.train_step(
+                pst["p"], pst["s"], plc_task.make_batch(pgen, pf, lost),
+                pcfg, popt)
+
+        ms, mem = timed_steps(plc_step, 3)
+        sec = run(["train-plc", path("b.f32"), path("plc"), "--seq-len",
+                   str(T), "--batch-size", str(B), "--epochs", "1",
+                   "--device", card_dev])
+        line(f"train-plc PLCConfig(), --seq-len {T} --batch-size {B} (cut "
+             f"from 1000 x 32 to fit the {raw.shape[0]}-frame corpus): "
+             f"{ms:.1f} ms per step, {B * T / ms * 1e3:.0f} training frames "
+             f"per s; max memory allocated {mem / 2**30:.2f} GiB; the "
+             f"command, one epoch: {sec:.1f} s")
+
+        # ---- train-rdovae at the command's default 1024/256
+        rcfg = rv.RDOVAEConfig()
+        T, B = RDOVAE_SEQ, RDOVAE_BATCH
+        rf = torch.as_tensor(feats[:B * T, :20].reshape(B, T, 20),
+                             device=dev)
+        ropt = rdovae_task.make_optimizer()
+        rst = {"p": convert.to_device(rv.rate_aware_quant_init(
+            rv.init_params(torch.Generator().manual_seed(0), rcfg), rcfg),
+            dev)}
+        rst["s"] = ropt.init(rst["p"])
+        rgen = torch.Generator(device=dev).manual_seed(1)
+
+        def rdovae_step():
+            q, lam = rdovae_task.sample_lambda(rgen, B, T // 2, device=dev)
+            rst["p"], rst["s"], _ = rdovae_task.train_step(
+                rst["p"], rst["s"], rf, q, lam, rgen, rcfg, ropt)
+
+        ms, mem = timed_steps(rdovae_step, 2)
+        sec = run(["train-rdovae", path("f0.f32"), path("rdovae"),
+                   "--seq-len", str(T), "--batch-size", str(B), "--epochs",
+                   "1", "--steps-per-epoch", "1", "--device", card_dev])
+        line(f"train-rdovae cond {rcfg.cond_size}/{rcfg.cond_size2}, "
+             f"--seq-len {T} --batch-size {B} (batch cut from 32 to fit "
+             f"the corpus): {ms:.1f} ms per step, {B * T / ms * 1e3:.0f} "
+             f"training frames per s; max memory allocated "
+             f"{mem / 2**30:.2f} GiB; the command, one step: {sec:.1f} s")
+
+        # ---- vq-train at the shipped sizes
+        sec = run(["vq-train", path("f0.f32"), path("cb.bin"), "--iters",
+                   "1", "--final-iters", "2", "--device", card_dev])
+        from lpcnet_tpu_torch.utils import weights_io
+        shapes = {k: v.shape for k, v in
+                  weights_io.load_params(path("cb.bin")).items()}
+        line(f"vq-train --iters 1 --final-iters 2 on {feats.shape[0]} "
+             f"frames: {sec:.1f} s; codebooks {shapes}")
+        if shapes != {"cb1": (1024, 17), "cb2": (1024, 17),
+                      "cb3": (1024, 17), "diff4": (4096, 18)}:
+            raise RuntimeError(f"train: vq-train gave {shapes}")
 
 
 def print_phases(sample_cuda, v, card, cases, teacher=False) -> None:

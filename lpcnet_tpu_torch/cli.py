@@ -1,7 +1,7 @@
-"""Command line of the PyTorch/CUDA port: the inference subcommands of
+"""Command line of the PyTorch/CUDA port: the subcommands of
 lpcnet_tpu/cli.py (reference lpcnet_demo -features, -synthesis, -encode,
--decode, -plc_file and -addlpc, dump_weights_blob, and the DRED and PLC
-scripts of training_tf2/).
+-decode, -plc_file and -addlpc, dump_data, ceps_vq_train,
+dump_weights_blob, and the training and DRED scripts of training_tf2/).
 
     python -m lpcnet_tpu_torch features in.pcm feats.f32 [--quantize-pitch]
     python -m lpcnet_tpu_torch synthesis feats.f32 out.pcm [--streaming |
@@ -19,7 +19,17 @@ scripts of training_tf2/).
         [--quant Q]
     python -m lpcnet_tpu_torch fec-encode in.pcm out.fec
         [--num-redundancy N] [--packets-per-fec P]
+    python -m lpcnet_tpu_torch dump-data train|test|btrain|btest|qtrain|qtest
+        in.pcm feats.f32 [data.s16] [--passes N --batch-passes M]
+    python -m lpcnet_tpu_torch vq-train feats.f32 codebooks.bin
+    python -m lpcnet_tpu_torch train-lpcnet feats.f32 data.s16 outdir
+    python -m lpcnet_tpu_torch train-plc feats.f32 outdir
+    python -m lpcnet_tpu_torch train-rdovae feats.f32 outdir
 
+The training commands (dump-data, vq-train, train-*) take the JAX
+package's arguments and defaults and write its files: the same feature
+and data layouts, codebook blobs, ckpt_{epoch:03d}.bin training
+checkpoints (loadable and resumable by either package) and metrics.jsonl.
 Every command but dump-weights-blob (numpy only) takes --device (default:
 the card; --device cpu runs the plain PyTorch paths). Feature files are
 float32 frames of 36; audio is 16-bit little-endian PCM at 16 kHz
@@ -40,7 +50,7 @@ import time
 import numpy as np
 import torch
 
-from .constants import (FRAME_SIZE, LPCNET_COMPRESSED_SIZE,
+from .constants import (DRED_COND_SIZE, FRAME_SIZE, LPCNET_COMPRESSED_SIZE,
                         LPCNET_PACKET_SAMPLES, NB_BANDS, NB_FEATURES,
                         NB_TOTAL_FEATURES)
 
@@ -476,6 +486,385 @@ def cmd_fec_encode(args) -> int:
     return 0
 
 
+# ---------------------------------------------------------------- dump-data
+
+def _hp_biquad(x: np.ndarray) -> np.ndarray:
+    """The DC-blocking high-pass of all dump_data input (dump_data.c:
+    114-115, 258: b = {-2, 1}, a = {-1.99599, .996}): native where the
+    library is available, else a per-sample loop (short files only)."""
+    from .data import _ptr
+    from .utils import native
+    lib = native.get_lib()
+    x = np.ascontiguousarray(x, np.float32)
+    if lib is not None:
+        y = np.empty_like(x)
+        lib.dp_hp_biquad(_ptr(y), _ptr(x), len(x))
+        return y
+    b = (-2.0, 1.0)
+    a = (-1.99599, 0.99600)
+    y = np.empty_like(x, np.float32)
+    m0 = m1 = 0.0
+    for i in range(len(x)):
+        xi = float(x[i])
+        yi = np.float32(xi + m0)
+        m0 = m1 + np.float32(b[0] * xi - a[0] * yi)
+        m1 = np.float32(b[1] * xi - a[1] * yi)
+        y[i] = yi
+    return y
+
+
+def _dump_test(args, pcm: np.ndarray, cbs, dev) -> int:
+    """The test, btest and qtest modes: features of the high-passed input,
+    no augmentation, CHUNK_FRAMES frames per call. test and btest run the
+    per-frame pitch path (process_single_frame, dump_data.c:283), qtest
+    the superframe path quantized through the codec (:288); btest puts
+    each frame's Burg cepstra first, [burg36 | feat36]."""
+    from . import features as F
+    from .codec import codec
+    from .ops import burg
+    pcm = _hp_biquad(pcm)
+    T = len(pcm) // FRAME_SIZE // 4 * 4
+    pcm = torch.as_tensor(_pad_to_chunks(pcm, T), device=dev)
+    state = F.init_state(1, dev)
+    vq_mem = torch.zeros((1, NB_BANDS), device=dev)
+    mode = "single" if cbs is None else "superframe"
+    outs = []
+    for t0 in range(0, pcm.shape[0] // FRAME_SIZE, CHUNK_FRAMES):
+        x = pcm[None, t0 * FRAME_SIZE:(t0 + CHUNK_FRAMES) * FRAME_SIZE]
+        state, f, sps = F.compute_features(state, x,
+                                           quantize_pitch=cbs is not None,
+                                           mode=mode)
+        if cbs is not None:
+            n = min(CHUNK_FRAMES, T - t0) // 4
+            if n:
+                _, fq, vq_mem = codec.encode_superframes(
+                    cbs, f[:, :4 * n], vq_mem, sps[:n])
+                f = torch.cat([fq, f[:, 4 * n:]], dim=1)
+        if args.mode == "btest":
+            b36 = burg.burg_cepstral_analysis(x[0].reshape(-1, FRAME_SIZE))
+            f = torch.cat([b36[None], f], dim=-1)
+        outs.append(f[0].cpu().numpy())
+    allf = np.concatenate(outs)[:T].astype(np.float32)
+    allf.tofile(args.features)
+    print(f"wrote {T} x {allf.shape[1]} feature frames -> {args.features}")
+    return 0
+
+
+def cmd_dump_data(args) -> int:
+    """Training and test data (src/dump_data.c:110-306):
+    train  = augmentation + features + (sig_in, sig_out) pairs
+    test   = clean features only
+    btrain = train with per-frame Burg cepstra first, [burg36 | feat36]
+             (the PLC training format, dump_data.c:145-150, 266-270)
+    btest  = clean [burg36 | feat36] frames, no augmentation
+    qtrain/qtest = train/test with the features quantized through the
+             codec (dump_data.c:154-161); --codebooks for trained ones.
+    The input may be a directory of voices: train and btrain then run
+    --passes passes over every training voice of its manifest.json (else
+    every *.s16 in it)."""
+    import glob
+    import json
+    from . import data as D
+    from .device import resolve_device
+    dev = resolve_device(args.device)
+    sources = None
+    if os.path.isdir(args.input):
+        if args.mode not in ("train", "btrain"):
+            raise ValueError("directory input is for the train and btrain "
+                             "corpus modes")
+        man_path = os.path.join(args.input, "manifest.json")
+        if os.path.exists(man_path):
+            with open(man_path) as f:
+                names = json.load(f)["train"]
+        else:
+            names = sorted(os.path.basename(p) for p in
+                           glob.glob(os.path.join(args.input, "*.s16")))
+        sources = [(n, read_pcm(os.path.join(args.input, n)))
+                   for n in names]
+        print(f"corpus input: {len(sources)} training voices "
+              f"x {args.passes} passes", flush=True)
+        pcm = sources[0][1]
+    else:
+        pcm = read_pcm(args.input)
+    cbs = load_codebooks(args.codebooks, dev) \
+        if args.mode in ("qtrain", "qtest") else None
+    if args.mode in ("test", "btest", "qtest"):
+        return _dump_test(args, pcm, cbs, dev)
+    if not args.data:
+        raise ValueError("the train modes need an output data.s16 path")
+    srcs = sources or [(os.path.basename(args.input), pcm)]
+    batched = args.mode == "train" and args.batch_passes > 1
+    total, width = 0, NB_TOTAL_FEATURES
+    with open(args.features, "wb") as ff, open(args.data, "wb") as fd:
+        for vi, (vname, vpcm) in enumerate(srcs):
+            # a per-voice seed offset: no two (voice, pass) pairs share
+            # augmentation filters
+            vseed = args.seed + 100003 * vi
+            for p0 in range(0, args.passes,
+                            args.batch_passes if batched else 1):
+                if batched:
+                    # passes as parallel batched feature streams
+                    seeds = range(vseed + p0, vseed + min(
+                        args.passes, p0 + args.batch_passes))
+                    feats, data = D.prepare_training_data_batch(
+                        vpcm, seeds, speed_aug=args.speed_aug, device=dev)
+                elif args.mode == "btrain":
+                    feats, data, burg36 = D.prepare_training_data(
+                        vpcm, seed=vseed + p0, include_burg=True,
+                        device=dev)
+                    feats = np.concatenate([burg36, feats], axis=-1)
+                else:
+                    feats, data = D.prepare_training_data(
+                        vpcm, seed=vseed + p0, quantize_codebooks=cbs,
+                        device=dev)
+                feats.astype(np.float32).tofile(ff)
+                data.astype(np.int16).tofile(fd)
+                total += feats.shape[0]
+                width = feats.shape[1]
+                if batched:
+                    print(f"  {vname} pass {p0 + len(seeds)}/{args.passes}"
+                          f": {total} frames", flush=True)
+    print(f"wrote {total} x {width} frames "
+          f"({args.passes} passes x {len(srcs)} sources) -> "
+          f"{args.features}, {args.data}")
+    return 0
+
+
+# ---------------------------------------------------------------- vq-train
+
+def cmd_vq_train(args) -> int:
+    """Codec codebooks from a feature file (src/ceps_vq_train.c:433-619)."""
+    from .codec import vq_train
+    from .device import resolve_device
+    from .utils import weights_io
+    dev = resolve_device(args.device)
+    feats = read_features(args.input)
+    cbs = vq_train.train_codec_codebooks(
+        torch.Generator(device=dev).manual_seed(args.seed),
+        torch.as_tensor(feats, device=dev), iters=args.iters,
+        final_iters=args.final_iters)
+    weights_io.save_params(args.output, {k: v.cpu().numpy()
+                                         for k, v in cbs.items()})
+    print(f"trained codebooks on {feats.shape[0]} frames -> {args.output}")
+    return 0
+
+
+# ---------------------------------------------------------------- training
+
+def _ckpt_path(outdir: str, epoch: int) -> str:
+    os.makedirs(outdir, exist_ok=True)
+    return os.path.join(outdir, f"ckpt_{epoch:03d}.bin")
+
+
+def _log_metrics(outdir: str, record: dict) -> None:
+    """One JSON line per epoch in <outdir>/metrics.jsonl (the keys of the
+    JAX package's trainers)."""
+    import json
+    os.makedirs(outdir, exist_ok=True)
+    record = dict(record, time=round(time.time(), 3))
+    with open(os.path.join(outdir, "metrics.jsonl"), "a") as f:
+        f.write(json.dumps(record) + "\n")
+
+
+def _start(args, opt, init, dev):
+    """(params on dev, optimizer state, step, first epoch): from --resume's
+    checkpoint (its step, Adam moments and schedule count), or init() of a
+    CPU generator seeded by --seed."""
+    from . import convert
+    from .training import optim
+    from .utils import checkpoint
+    if args.resume:
+        tree, leaves, step, meta = checkpoint.load_training(args.resume)
+        params = convert.params_from_numpy(tree, dev)
+        return (params, optim.state_from_leaves(leaves, params), step,
+                int(meta.get("epoch", -1)) + 1)
+    params = convert.to_device(init(torch.Generator().manual_seed(args.seed)),
+                               dev)
+    return params, opt.init(params), 0, 0
+
+
+def _end_epoch(args, params, opt_state, step, meta, record, n, tot) -> str:
+    """Write the epoch's checkpoint and metrics line; returns the
+    checkpoint's path."""
+    from . import convert
+    from .training import optim
+    from .utils import checkpoint
+    ck = _ckpt_path(args.outdir, meta["epoch"])
+    checkpoint.save_training(ck, convert.params_to_numpy(params),
+                             optim.state_leaves(opt_state), step, meta)
+    _log_metrics(args.outdir, dict(
+        {"task": meta["cfg"], "epoch": meta["epoch"], "step": step,
+         "steps": n, "loss": round(tot / max(1, n), 6)}, **record))
+    return ck
+
+
+def cmd_train_lpcnet(args) -> int:
+    """LPCNet trainer (training_tf2/train_lpcnet.py): teacher-forced CE,
+    sparsify/quantize schedules, per-epoch checkpoints, resume."""
+    from . import convert
+    from . import data as D
+    from .device import resolve_device
+    from .models import lpcnet
+    from .training import lpcnet_task, sparsify
+    dev = resolve_device(args.device)
+    feats = read_features(args.features)
+    data = np.fromfile(args.data, np.int16).reshape(-1, 2)
+    cfg = lpcnet.LPCNetConfig(e2e=args.e2e, lpc_gamma=args.gamma)
+    opt = lpcnet_task.make_optimizer(lr=args.lr, decay=args.decay,
+                                     b1=args.beta1, b2=args.beta2)
+    params, opt_state, step, epoch0 = _start(
+        args, opt, lambda g: lpcnet.init_params(g, cfg), dev)
+    if args.retrain and not args.resume:
+        params = convert.load_lpcnet(args.retrain, device=dev)
+        opt_state = opt.init(params)
+    # schedules: from scratch or quantize-finetune (train_lpcnet.py:303-317)
+    t0, t1, iv = (10000, 30000, 100) if args.quantize else (2000, 40000, 400)
+    if args.sparsify_start is not None:
+        t0 = args.sparsify_start
+    if args.sparsify_end is not None:
+        t1 = args.sparsify_end
+    scfg = sparsify.SparsifyConfig(t_start=t0, t_end=t1, interval=iv,
+                                   quantize=args.quantize,
+                                   density=tuple(args.density),
+                                   grub_density=tuple(args.grub_density))
+    noise = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    for ep in range(args.epochs):
+        epoch = epoch0 + ep
+        tw = time.perf_counter()
+        n, tot = 0, 0.0
+        for batch in D.window_batches(
+                feats, data, batch_size=args.batch_size,
+                rng=np.random.RandomState(args.seed + epoch)):
+            tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+            params, opt_state, metrics = lpcnet_task.train_step(
+                params, opt_state, tb, cfg, opt, noise)
+            params = sparsify.apply(params, step, scfg, cfg.gru_a_units)
+            step += 1
+            n += 1
+            tot += float(metrics["loss"])
+            if args.steps_per_epoch and n >= args.steps_per_epoch:
+                break
+        wall = time.perf_counter() - tw
+        ck = _end_epoch(args, params, opt_state, step,
+                        {"epoch": epoch, "cfg": "lpcnet"},
+                        {"wall_s": round(wall, 2)}, n, tot)
+        print(f"epoch {epoch}: {n} steps, loss {tot / max(1, n):.4f}, "
+              f"{wall:.1f}s -> {ck}")
+    return 0
+
+
+def cmd_train_plc(args) -> int:
+    """PLC trainer (training_tf2/train_plc.py): masked L1 losses over
+    simulated loss traces."""
+    from .device import resolve_device
+    from .models import plc as plc_model
+    from .training import plc_task
+    dev = resolve_device(args.device)
+    width = 2 * NB_BANDS + NB_FEATURES           # 56
+    btrain_w = 2 * NB_BANDS + NB_TOTAL_FEATURES  # 72
+    raw = np.fromfile(args.features, np.float32)
+    div72, div56 = raw.size % btrain_w == 0, raw.size % width == 0
+    fmt = args.feature_width
+    if fmt == "auto":
+        if div72 and div56:
+            print(f"error: {args.features}: size {raw.size} is divisible "
+                  f"by both 72 (btrain) and 56 — pass --feature-width",
+                  file=sys.stderr)
+            return 1
+        fmt = "72" if div72 else "56"
+    # the btrain layout [burg36 | feat36] keeps burg36 + feat20
+    # (train_plc.py:246-260)
+    feats = raw.reshape(-1, btrain_w)[:, :width] if fmt == "72" \
+        else raw.reshape(-1, width)
+    if args.loss_traces:
+        traces = np.loadtxt(args.loss_traces, dtype=np.int64).reshape(-1)
+    else:
+        traces = (np.random.RandomState(args.seed)
+                  .uniform(size=200000) > 0.2).astype(np.int64)
+    cfg = plc_model.PLCConfig()
+    opt = plc_task.make_optimizer(lr=args.lr)
+    params, opt_state, step, epoch0 = _start(
+        args, opt, lambda g: plc_model.init_params(g, cfg), dev)
+    T = args.seq_len
+    nseq = feats.shape[0] // T
+    feats = feats[:nseq * T].reshape(nseq, T, width)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    for ep in range(args.epochs):
+        epoch = epoch0 + ep
+        order = np.random.RandomState(args.seed + epoch).permutation(nseq)
+        n, tot = 0, 0.0
+        for b0 in range(0, nseq - args.batch_size + 1, args.batch_size):
+            sel = order[b0:b0 + args.batch_size]
+            # loss simulation from the traces at random offsets
+            # (plc_loader.py:56-75)
+            off = np.random.RandomState(step).randint(
+                0, max(1, len(traces) - T), size=len(sel))
+            lost = np.stack([traces[o:o + T] for o in off])
+            batch = plc_task.make_batch(
+                gen, torch.as_tensor(feats[sel], device=dev),
+                torch.as_tensor(lost, device=dev))
+            params, opt_state, metrics = plc_task.train_step(
+                params, opt_state, batch, cfg, opt)
+            step += 1
+            n += 1
+            tot += float(metrics["loss"])
+            if args.steps_per_epoch and n >= args.steps_per_epoch:
+                break
+        ck = _end_epoch(args, params, opt_state, step,
+                        {"epoch": epoch, "cfg": "plc"}, {}, n, tot)
+        print(f"epoch {epoch}: {n} steps, loss {tot / max(1, n):.4f} "
+              f"-> {ck}")
+    return 0
+
+
+def cmd_train_rdovae(args) -> int:
+    """RDO-VAE trainer (training_tf2/train_rdovae.py): lambda-conditioned
+    rate-distortion training."""
+    from .device import resolve_device
+    from .models import rdovae as rv
+    from .training import rdovae_task
+    dev = resolve_device(args.device)
+    feats = read_features(args.features)[:, :NB_FEATURES]
+    cfg = rv.RDOVAEConfig(cond_size=args.cond_size,
+                          cond_size2=args.cond_size2)
+    opt = rdovae_task.make_optimizer(lr=args.lr)
+
+    def init(g):
+        params = rv.init_params(g, cfg)
+        # the RD-ordered per-level scales (rv.rate_aware_quant_init)
+        return rv.rate_aware_quant_init(params, cfg) if args.rate_init \
+            else params
+
+    params, opt_state, step, epoch0 = _start(args, opt, init, dev)
+    T = args.seq_len
+    nseq = feats.shape[0] // T
+    feats = feats[:nseq * T].reshape(nseq, T, NB_FEATURES)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    for ep in range(args.epochs):
+        epoch = epoch0 + ep
+        order = np.random.RandomState(args.seed + epoch).permutation(nseq)
+        n, tot = 0, 0.0
+        for b0 in range(0, nseq - args.batch_size + 1, args.batch_size):
+            sel = order[b0:b0 + args.batch_size]
+            qid, lam = rdovae_task.sample_lambda(gen, len(sel), T // 2,
+                                                 device=dev)
+            params, opt_state, metrics = rdovae_task.train_step(
+                params, opt_state, torch.as_tensor(feats[sel], device=dev),
+                qid, lam, gen, cfg, opt)
+            step += 1
+            n += 1
+            tot += float(metrics["loss"])
+            if args.steps_per_epoch and n >= args.steps_per_epoch:
+                break
+        ck = _end_epoch(args, params, opt_state, step,
+                        {"epoch": epoch, "cfg": "rdovae",
+                         "cond_size": cfg.cond_size,
+                         "cond_size2": cfg.cond_size2}, {}, n, tot)
+        print(f"epoch {epoch}: {n} steps, loss {tot / max(1, n):.4f} "
+              f"-> {ck}")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="lpcnet_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -585,7 +974,112 @@ def build_parser() -> argparse.ArgumentParser:
                    help="dframes between payloads")
     p.add_argument("--device", default=None, help=device_help)
     p.set_defaults(fn=cmd_fec_encode)
+    _training_parsers(sub, device_help)
     return ap
+
+
+def _train_common(p, device_help) -> None:
+    p.add_argument("--epochs", type=int, default=4)
+    p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--resume", default=None,
+                   help="checkpoint to resume from (params+opt+step)")
+    p.add_argument("--steps-per-epoch", type=int, default=0,
+                   help="cap steps per epoch (0 = all data)")
+    p.add_argument("--device", default=None, help=device_help)
+
+
+def _training_parsers(sub, device_help) -> None:
+    """The training commands, with the JAX package's arguments and
+    defaults (lpcnet_tpu/cli.py) and --device."""
+    p = sub.add_parser("dump-data", help="training/test data prep")
+    p.add_argument("mode", choices=["train", "test", "btrain", "btest",
+                                    "qtrain", "qtest"])
+    p.add_argument("input")
+    p.add_argument("features")
+    p.add_argument("data", nargs="?", default=None)
+    p.add_argument("--passes", type=int, default=1)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--codebooks", default=None,
+                   help="trained codec codebooks for qtrain/qtest")
+    p.add_argument("--batch-passes", type=int, default=1,
+                   help="train mode: run this many augmentation passes as "
+                   "parallel batched feature streams (corpus building)")
+    p.add_argument("--speed-aug", action="store_true",
+                   help="train mode with --batch-passes: per-pass random "
+                   "resampling in [0.7, 1.4] for pitch diversity")
+    p.add_argument("--device", default=None, help=device_help)
+    p.set_defaults(fn=cmd_dump_data)
+
+    p = sub.add_parser("vq-train", help="train codec VQ codebooks")
+    p.add_argument("input")
+    p.add_argument("output")
+    p.add_argument("--iters", type=int, default=4,
+                   help="Lloyd passes per codebook split (the C recipe's "
+                   "4, ceps_vq_train.c:361)")
+    p.add_argument("--final-iters", type=int, default=20,
+                   help="polish passes at full size (the C's 20)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default=None, help=device_help)
+    p.set_defaults(fn=cmd_vq_train)
+
+    p = sub.add_parser("train-lpcnet", help="train the vocoder")
+    p.add_argument("features")
+    p.add_argument("data")
+    p.add_argument("outdir")
+    _train_common(p, device_help)
+    p.add_argument("--decay", type=float, default=5e-5)
+    p.add_argument("--beta1", type=float, default=0.5,
+                   help="Adam beta_1 (reference train_lpcnet.py:229)")
+    p.add_argument("--beta2", type=float, default=0.8)
+    p.add_argument("--e2e", action="store_true")
+    p.add_argument("--gamma", type=float, default=1.0)
+    p.add_argument("--quantize", action="store_true",
+                   help="int8 quantize-finetune schedule")
+    p.add_argument("--retrain", default=None,
+                   help="params checkpoint to warm-start from")
+    p.add_argument("--density", type=float, nargs=3,
+                   default=[0.05, 0.05, 0.2])
+    p.add_argument("--grub-density", type=float, nargs=3,
+                   default=[1.0, 1.0, 1.0])
+    p.add_argument("--sparsify-start", type=int, default=None,
+                   help="override the sparsify schedule's start batch "
+                   "(defaults: 2000 from-scratch / 10000 quantize)")
+    p.add_argument("--sparsify-end", type=int, default=None,
+                   help="override the sparsify schedule's end batch "
+                   "(defaults: 40000 / 30000)")
+    p.set_defaults(fn=cmd_train_lpcnet)
+
+    p = sub.add_parser("train-plc", help="train the PLC predictor")
+    p.add_argument("features", help="f32 frames [burg36|feat20]")
+    p.add_argument("outdir")
+    _train_common(p, device_help)
+    p.add_argument("--loss-traces", default=None,
+                   help="text file of 0/1 flags (1 = received)")
+    p.add_argument("--seq-len", type=int, default=1000)
+    p.add_argument("--feature-width", default="auto",
+                   choices=["auto", "56", "72"],
+                   help="56 = [burg36|feat20], 72 = dump-data btrain "
+                   "[burg36|feat36]; auto errors when ambiguous")
+    p.set_defaults(fn=cmd_train_plc)
+
+    p = sub.add_parser("train-rdovae", help="train the DRED RDO-VAE")
+    p.add_argument("features")
+    p.add_argument("outdir")
+    _train_common(p, device_help)
+    p.add_argument("--seq-len", type=int, default=400)
+    p.add_argument("--cond-size", type=int, default=DRED_COND_SIZE,
+                   help="GRU width (1024 = TF trainer default; 256 = the "
+                   "torch trainer's deployable geometry)")
+    p.add_argument("--cond-size2", type=int, default=256)
+    p.add_argument("--rate-init", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="start the 16 quantizer levels on the RD-optimal "
+                   "scale(q) ~ sqrt(lambda(q)) instead of the reference's "
+                   "all-equal zero init (models/rdovae.py::"
+                   "rate_aware_quant_init)")
+    p.set_defaults(fn=cmd_train_rdovae)
 
 
 def main(argv=None) -> int:

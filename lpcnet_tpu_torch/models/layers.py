@@ -3,10 +3,65 @@ lpcnet_tpu/models/layers.py, reference src/nnet.c).
 
 Weight layout as in the JAX package: kernels are (in, out), GRU gates are
 ordered [z | r | h] (reset-after), biases split input/recurrent.
+
+The *_init functions give the JAX package's trees, shapes, dtypes and
+distributions from an explicit torch.Generator, as float32 tensors on the
+CPU. Their values differ from JAX's: the generators differ.
 """
 import torch
 
 from ..ops import activations
+
+
+def _uniform(gen, shape, s):
+    return torch.empty(shape, dtype=torch.float32).uniform_(-s, s,
+                                                            generator=gen)
+
+
+def dense_init(gen: torch.Generator, nin, nout, scale=None):
+    """Glorot-uniform kernel (nin, nout), zero bias."""
+    s = scale if scale is not None else (6.0 / (nin + nout)) ** 0.5
+    return {"w": _uniform(gen, (nin, nout), s),
+            "b": torch.zeros((nout,), dtype=torch.float32)}
+
+
+def embedding_init(gen: torch.Generator, num, dim, scale=1.0):
+    return {"e": scale * torch.randn((num, dim), generator=gen,
+                                     dtype=torch.float32)}
+
+
+def orthogonal(gen: torch.Generator, n: int, count: int) -> torch.Tensor:
+    """count (n, n) matrices drawn uniformly from O(n): the Q of a Gaussian
+    matrix's QR with the signs of R's diagonal (jax.random.orthogonal)."""
+    q, r = torch.linalg.qr(torch.randn((count, n, n), generator=gen,
+                                       dtype=torch.float32))
+    return q * torch.sign(torch.diagonal(r, dim1=-2, dim2=-1))[..., None, :]
+
+
+def gru_init(gen: torch.Generator, nin, n):
+    """Glorot-uniform input kernel (nin, 3n), an orthogonal recurrent block
+    per gate (n, 3n), zero biases."""
+    s_in = (6.0 / (nin + 3 * n)) ** 0.5
+    return {"wi": _uniform(gen, (nin, 3 * n), s_in),
+            "wr": orthogonal(gen, n, 3).permute(1, 0, 2).reshape(n, 3 * n)
+            .contiguous(),
+            "bi": torch.zeros((3 * n,), dtype=torch.float32),
+            "br": torch.zeros((3 * n,), dtype=torch.float32)}
+
+
+def conv1d_init(gen: torch.Generator, nin, nout, ksize):
+    s = (6.0 / (nin * ksize + nout)) ** 0.5
+    return {"w": _uniform(gen, (ksize, nin, nout), s),
+            "b": torch.zeros((nout,), dtype=torch.float32)}
+
+
+def dualfc_init(gen: torch.Generator, nin, nout):
+    """MDense with 2 channels (training_tf2/mdense.py:73-81)."""
+    s = (6.0 / (nin + nout)) ** 0.5
+    return {"w": _uniform(gen, (2, nin, nout), s),
+            "b": torch.zeros((2, nout), dtype=torch.float32),
+            "factor": 1.0 + 0.01 * torch.randn((2, nout), generator=gen,
+                                               dtype=torch.float32)}
 
 
 def dense_apply(p, x, act, approx=False):
@@ -40,19 +95,25 @@ def gru_apply(p, h, x, act="tanh", approx=False):
                      approx)
 
 
-def gru_sequence(p, x, h0, act="tanh", approx=False):
-    """Reset-after GRU over a sequence: x (B, T, nin), h0 (B, N) ->
-    (B, T, N), the state after each step. The input product is taken once
-    for the whole sequence, then gru_gates runs step by step (the scan of
-    lpcnet_tpu/models/rdovae.py::_gru_seq and models/plc.py::
-    forward_sequence)."""
-    zrh = x @ p["wi"] + p["bi"]
+def gru_scan(zrh, h0, wr, br, act="tanh", approx=False):
+    """Reset-after GRU over a sequence from its input-side preactivations
+    zrh (B, T, 3N) and h0 (B, N) -> (B, T, N), the state after each step
+    (lpcnet_tpu/training/lpcnet_task.py::_gru_scan). The outputs are
+    stacked, never written in place, so autograd can run through it."""
     h, hs = h0, []
-    for t in range(x.shape[1]):
-        h = gru_gates(h, zrh[:, t], h @ p["wr"] + p["br"], act, approx)
+    for t in range(zrh.shape[1]):
+        h = gru_gates(h, zrh[:, t], h @ wr + br, act, approx)
         hs.append(h)
     return torch.stack(hs, dim=1) if hs else zrh.new_zeros(
-        (x.shape[0], 0, h0.shape[-1]))
+        (zrh.shape[0], 0, h0.shape[-1]))
+
+
+def gru_sequence(p, x, h0, act="tanh", approx=False):
+    """Reset-after GRU over a sequence: x (B, T, nin), h0 (B, N) ->
+    (B, T, N). The input product is taken once for the whole sequence,
+    then gru_scan runs step by step (the scan of lpcnet_tpu/models/
+    rdovae.py::_gru_seq and models/plc.py::forward_sequence)."""
+    return gru_scan(x @ p["wi"] + p["bi"], h0, p["wr"], p["br"], act, approx)
 
 
 def conv1d_step(p, mem, x, act="tanh", approx=False):

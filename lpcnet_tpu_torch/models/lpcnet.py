@@ -49,6 +49,25 @@ class LPCNetConfig:
         return self.nb_features + self.embed_pitch_size  # 84
 
 
+def init_params(gen: torch.Generator, cfg: LPCNetConfig) -> Dict[str, Any]:
+    """A fresh parameter tree (lpcnet_tpu/models/lpcnet.py::init_params):
+    float32 tensors on the CPU drawn from gen."""
+    na, nc = cfg.gru_a_units, cfg.cond_size
+    return {
+        "embed_pitch": layers.embedding_init(gen, cfg.pcm_levels,
+                                             cfg.embed_pitch_size, 0.1),
+        "conv1": layers.conv1d_init(gen, cfg.frame_in_size, nc, 3),
+        "conv2": layers.conv1d_init(gen, nc, nc, 3),
+        "dense1": layers.dense_init(gen, nc, nc),
+        "dense2": layers.dense_init(gen, nc, nc),
+        "embed_sig": layers.embedding_init(gen, cfg.pcm_levels,
+                                           cfg.embed_sig_size, 0.1),
+        "gru_a": layers.gru_init(gen, cfg.rnn_in_size, na),
+        "gru_b": layers.gru_init(gen, na + nc, cfg.gru_b_units),
+        "dual_fc": layers.dualfc_init(gen, cfg.gru_b_units, cfg.pcm_levels),
+    }
+
+
 def pitch_index(features: torch.Tensor) -> torch.Tensor:
     """Quantize the pitch feature to an embedding index (lpcnet.c:92-94):
     floor(.1 + 50*f[NB_BANDS] + 100), clamped to [33, 255]."""

@@ -25,6 +25,17 @@ class PLCConfig:
     approx: bool = False
 
 
+def init_params(gen: torch.Generator, cfg: PLCConfig = PLCConfig()):
+    """A fresh parameter tree (lpcnet_tpu/models/plc.py::init_params):
+    float32 tensors on the CPU drawn from gen."""
+    return {
+        "dense1": layers.dense_init(gen, PLC_INPUT_SIZE, cfg.dense_size),
+        "gru1": layers.gru_init(gen, cfg.dense_size, cfg.gru_size),
+        "gru2": layers.gru_init(gen, cfg.gru_size, cfg.gru_size),
+        "out": layers.dense_init(gen, cfg.gru_size, cfg.nb_features),
+    }
+
+
 def init_net_state(batch: int, cfg: PLCConfig = PLCConfig(), device=None):
     return {k: torch.zeros((batch, cfg.gru_size), dtype=torch.float32,
                            device=device) for k in ("gru1", "gru2")}

@@ -1,4 +1,4 @@
-"""DRED RDO-VAE, inference part (the port of lpcnet_tpu/models/rdovae.py;
+"""DRED RDO-VAE (the port of lpcnet_tpu/models/rdovae.py;
 reference training_tf2/rdovae.py:256-557, C inference
 src/dred_rdovae_{enc,dec}.c).
 
@@ -17,16 +17,20 @@ torch.backends.cuda.matmul.allow_tf32 is set: TF32 keeps ~3 decimal
 digits and flips DRED symbols, as it flips the codec's VQ choices. The
 causal conv is four shifted products, not torch's conv1d, whose cuDNN
 path runs float32 in TF32 by default. The initializers, the training-time
-quantizers and the losses belong to training and are not here.
+quantizer hard_quantize and the rate-distortion losses
+serve training/rdovae_task.py; their gradients follow JAX's at ties
+(ops/ties.py).
 """
 import dataclasses
 from typing import Dict
 
+import numpy as np
 import torch
 
 from ..constants import (DRED_COND_SIZE, DRED_LATENT_DIM, DRED_NUM_FEATURES,
                          DRED_NUM_QUANT_LEVELS, DRED_PVQ_K, DRED_STATE_DIM)
 from ..device import refuse_tf32
+from ..ops import ties
 from . import layers
 
 
@@ -49,6 +53,55 @@ class RDOVAEConfig:
     @property
     def concat_size(self) -> int:
         return 3 * self.cond_size2 + 5 * self.cond_size
+
+
+def init_params(gen: torch.Generator, cfg: RDOVAEConfig = RDOVAEConfig()):
+    """A fresh parameter tree (lpcnet_tpu/models/rdovae.py::init_params):
+    float32 tensors on the CPU drawn from gen; the quant embedding starts
+    at zero (rdovae.py:466)."""
+    c, c2 = cfg.cond_size, cfg.cond_size2
+
+    def stack(nin):
+        return {"dense1": layers.dense_init(gen, nin, c2),
+                "gru2": layers.gru_init(gen, c2, c),
+                "dense3": layers.dense_init(gen, c, c2),
+                "gru4": layers.gru_init(gen, c2, c),
+                "dense5": layers.dense_init(gen, c, c2),
+                "gru6": layers.gru_init(gen, c2, c),
+                "dense7": layers.dense_init(gen, c, c),
+                "dense8": layers.dense_init(gen, c, c)}
+
+    enc = stack(cfg.pair_size)
+    enc.update(bits_conv=layers.conv1d_init(gen, cfg.concat_size,
+                                            cfg.nb_latents, 4),
+               gdense1=layers.dense_init(gen, cfg.concat_size, 128),
+               gdense2=layers.dense_init(gen, 128, cfg.state_dim))
+    dec = stack(cfg.nb_latents)
+    dec.update({k: layers.dense_init(gen, cfg.state_dim, c)
+                for k in ("state1", "state2", "state3")})
+    dec["final"] = layers.dense_init(gen, cfg.concat_size,
+                                     cfg.bunch * cfg.nb_features)
+    quant = {"e": torch.zeros((cfg.nb_quant, 6 * cfg.nb_latents),
+                              dtype=torch.float32)}
+    return {"enc": enc, "dec": dec, "quant_embed": quant}
+
+
+def rate_aware_quant_init(params, cfg: RDOVAEConfig = RDOVAEConfig(),
+                          lam_min: float = 2e-4, denom: float = 3.8):
+    """The per-level quantizer scales on the uniform quantizer's
+    rate-distortion optimum, scale(q) = softplus(0) * sqrt(lam(q) /
+    lam(mid)), in place of the all-equal zero init
+    (lpcnet_tpu/models/rdovae.py::rate_aware_quant_init): the scale
+    columns of the quant embedding take softplus^-1 of that, computed in
+    numpy as the JAX package does."""
+    nb, nq = cfg.nb_latents, cfg.nb_quant
+    q = np.arange(nq, dtype=np.float32)
+    lam = lam_min * np.exp(q / denom)
+    mid = lam_min * np.exp(0.5 * (nq - 1) / denom)
+    raw = np.log(np.expm1(0.693147 * np.sqrt(lam / mid))).astype(np.float32)
+    e = params["quant_embed"]["e"].clone()
+    e[:, :nb] = torch.as_tensor(raw, device=e.device)[:, None]
+    return {**params, "quant_embed": {"e": e}}
 
 
 def _stack(p, x, h0s, ap):
@@ -108,9 +161,26 @@ def decode(params, z: torch.Tensor, init_state: torch.Tensor,
     return torch.flip(quad.reshape(B, -1, cfg.nb_features), [1])
 
 
+class _Softplus(torch.autograd.Function):
+    """log(1 + exp(x)) in jax.nn.softplus's form, logaddexp(x, 0), with
+    its gradient sigmoid(x) everywhere. Differentiated term by term, the
+    form would send 1 back at x = 0 (torch's clamp and abs pass 1 and 0
+    at the tie), twice sigmoid(0); the quant embedding starts at exactly
+    0."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * torch.sigmoid(x)
+
+
 def _softplus(x: torch.Tensor) -> torch.Tensor:
-    """log(1 + exp(x)) in jax.nn.softplus's form, logaddexp(x, 0)."""
-    return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+    return _Softplus.apply(x)
 
 
 def quant_params(params, quant_id: torch.Tensor,
@@ -132,10 +202,16 @@ def apply_dead_zone(x: torch.Tensor, dead_zone: torch.Tensor) -> torch.Tensor:
     return x - d * torch.tanh(x / (0.1 + d))
 
 
+def hard_quantize(x: torch.Tensor) -> torch.Tensor:
+    """Round with a straight-through gradient (rdovae.py:97-100)."""
+    return x + (torch.round(x) - x).detach()
+
+
 def pvq_quantize(x: torch.Tensor, k: int, iters: int = 10) -> torch.Tensor:
-    """Unit-norm PVQ with k pulses (rdovae.py:210-247), the forward value
-    of the JAX package's straight-through form: xn + (q - xn), rounded as
-    it rounds. x: (..., D)."""
+    """Unit-norm PVQ with k pulses and a straight-through gradient
+    (rdovae.py:210-247): xn + (q - xn) with q - xn detached, rounded as the
+    JAX package rounds; the gradient is that of the normalised input xn.
+    x: (..., D)."""
     xn = x / (1e-15 + torch.linalg.vector_norm(x, dim=-1, keepdim=True))
     xl1 = xn / torch.sum(torch.abs(xn), dim=-1, keepdim=True)
     kx = k * xl1
@@ -156,4 +232,68 @@ def pvq_quantize(x: torch.Tensor, k: int, iters: int = 10) -> torch.Tensor:
         kx = newk * xl1
         y = torch.round(kx)
     q = y / (1e-15 + torch.linalg.vector_norm(y, dim=-1, keepdim=True))
-    return xn + (q - xn)
+    return xn + (q - xn).detach()
+
+
+# ------------------------------------------------------------------ losses
+
+_LOG2_E = 1.4427
+_EPS = 1e-6
+
+
+def _safelog2(x):
+    return _LOG2_E * torch.log(_EPS + x)
+
+
+def feat_dist_loss(y_true, y_pred, lam):
+    """Lambda-weighted cepstral/pitch/corr distortion (rdovae.py:129-146).
+    y_true, y_pred: (..., T, 20); lam: (..., T, 1)."""
+    lambda_1 = 1.0 / torch.sqrt(lam[..., 0])
+    ceps = y_pred[..., :18] - y_true[..., :18]
+    pitch = 2.0 * (y_pred[..., 18:19] - y_true[..., 18:19]) \
+        / (y_true[..., 18:19] + 2.0)
+    corr = y_pred[..., 19:] - y_true[..., 19:]
+    pitch_weight = torch.square(ties.maximum(y_true[..., 19:] + 0.5, 0.0))
+    inner = torch.mean(torch.square(ceps), dim=-1) \
+        + 10.0 * (1 / 18.0) * torch.mean(ties.abs(pitch) * pitch_weight,
+                                          dim=-1) \
+        + (1 / 18.0) * torch.mean(torch.square(corr), dim=-1)
+    return torch.mean(lambda_1 * inner)
+
+
+def _rate(z, r, p0):
+    """Entropy model -log2 P(z) of integer symbols z (sq2_rate_loss's
+    body)."""
+    az = ties.abs(z)
+    y0 = ties.maximum(1.0 - az, 0.0) ** 2
+    return (-y0 * _safelog2(p0 * r ** az)
+            - (1 - y0) * _safelog2(0.5 * (1 - p0) * (1 - r)
+                                   * r ** (az - 1.0)))
+
+
+def _entropy_params(q):
+    """(p0, r) of the soft or hard entropy-model parameters (..., 160)."""
+    n = q.shape[-1] // 2
+    r = q[..., n:]
+    return 1.0 - r ** (0.5 + 0.5 * q[..., :n]), r
+
+
+def sq1_rate_loss(z, soft, lam):
+    """Soft (continuous) rate loss (rdovae.py:149-170). z: (B, S, 80)
+    dead-zoned unrounded symbols; soft: (B, S, 160); lam: (B, S, 1)."""
+    _, r = _entropy_params(soft)
+    rate = -_safelog2((1 - r) / (1 + r) * r ** ties.abs(z))
+    return torch.mean(torch.sqrt(lam[..., 0]) * torch.sum(rate, dim=-1))
+
+
+def sq2_rate_loss(z, hard, lam):
+    """Hard (rounded) rate loss (rdovae.py:173-187)."""
+    p0, r = _entropy_params(hard)
+    rate = _rate(torch.round(z), r, p0)
+    return torch.mean(torch.sqrt(lam[..., 0]) * torch.sum(rate, dim=-1))
+
+
+def sq_rate_metric(z, hard):
+    """Bits-per-step estimate of rounded symbols (rdovae.py:190-207)."""
+    p0, r = _entropy_params(hard)
+    return torch.mean(torch.sum(_rate(torch.round(z), r, p0), dim=-1))

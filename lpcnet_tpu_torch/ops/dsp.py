@@ -152,3 +152,42 @@ def lpc_weighting(lpc: torch.Tensor, gamma: float) -> torch.Tensor:
     """Bandwidth expansion lpc[i] *= gamma^(i+1) (freq.c:299-308)."""
     g = gamma ** np.arange(1, LPC_ORDER + 1, dtype=np.float32)
     return lpc * _t(g.astype(np.float32), lpc)
+
+
+def deemphasis_scan(e: torch.Tensor, mem: torch.Tensor, coef: float = 0.85):
+    """Streaming de-emphasis y[i] = e[i] + coef*y[i-1] as a parallel
+    first-order scan along the last axis: jax.lax.associative_scan's
+    odd/even recursion on the pairs (A, B) meaning y = A*y_prev + B, as
+    lpcnet_tpu/ops/dsp.py::deemphasis_scan runs it (log2(N) levels of
+    elementwise work, no per-sample loop). e: (..., N), mem: (...,) the
+    last output before e. Returns (y, new_mem)."""
+    e = e.to(torch.float32)
+    a = torch.full_like(e, coef)
+    b = torch.cat([e[..., :1] + coef * mem[..., None], e[..., 1:]], dim=-1)
+    _, y = _first_order_scan(a, b)
+    return y, y[..., -1]
+
+
+def _first_order_scan(a: torch.Tensor, b: torch.Tensor):
+    """Inclusive scan of the pairs (a, b) under (x, y) -> (x_a * y_a,
+    y_a * x_b + y_b), x before y, in associative_scan's order."""
+    n = a.shape[-1]
+    if n < 2:
+        return a, b
+
+    def combine(xa, xb, ya, yb):
+        return xa * ya, ya * xb + yb
+
+    oa, ob = _first_order_scan(*combine(a[..., 0:n - 1:2], b[..., 0:n - 1:2],
+                                        a[..., 1::2], b[..., 1::2]))
+    m = oa.shape[-1] if n % 2 else oa.shape[-1] - 1
+    ea, eb = combine(oa[..., :m], ob[..., :m], a[..., 2::2], b[..., 2::2])
+    ea = torch.cat([a[..., :1], ea], dim=-1)
+    eb = torch.cat([b[..., :1], eb], dim=-1)
+
+    def interleave(even, odd):
+        k = odd.shape[-1]
+        both = torch.stack([even[..., :k], odd], dim=-1).flatten(-2)
+        return torch.cat([both, even[..., k:]], dim=-1)
+
+    return interleave(ea, oa), interleave(eb, ob)

@@ -1,21 +1,45 @@
-"""Read side of the training checkpoints (the port of
-lpcnet_tpu/utils/checkpoint.py::load_training).
+"""Training checkpoints (the port of lpcnet_tpu/utils/checkpoint.py).
 
 A training checkpoint is one DNNw blob holding the parameter tree, the
 optimizer's leaves, the global step and a JSON metadata dict, described
-by the record __train_manifest__; the JAX package's trainers write it
-(checkpoint.save_training). The optimizer state comes back as its flat
-list of leaves: its tree structure is a JAX pytree, which the port has
-no use for.
+by the record __train_manifest__. Both packages' trainers write and read
+the same blob: the parameters as records p0000, p0001, ... in the sorted
+order of their '/'-joined paths, the optimizer's leaves as o0000, ... in
+optax's leaf order (training/optim.py::state_leaves). The optimizer state
+comes back as its flat list of leaves (optim.state_from_leaves rebuilds
+the port's).
 """
 import json
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from . import weights_io
 
 MANIFEST = "__train_manifest__"
+
+
+def save_training(path: str, params: Dict[str, Any],
+                  opt_leaves: Sequence[np.ndarray], step: int,
+                  meta: Optional[Dict[str, Any]] = None) -> None:
+    """Write params (nested dicts of numpy arrays, convert.params_to_numpy
+    of the port's), the optimizer's leaves, the step and meta as one blob,
+    record for record as lpcnet_tpu's save_training writes it."""
+    arrays: Dict[str, np.ndarray] = {}
+    flat = weights_io.flatten(params)
+    manifest = {"params": {}, "nopt": 0, "step": int(step),
+                "meta": meta or {}}
+    for i, (name, a) in enumerate(sorted(flat.items())):
+        rec = f"p{i:04d}"
+        arrays[rec] = a.astype(np.float32) if a.dtype == np.float64 else a
+        manifest["params"][rec] = {"name": name, "shape": list(a.shape),
+                                   "dtype": str(arrays[rec].dtype)}
+    manifest["nopt"] = len(opt_leaves)
+    for i, leaf in enumerate(opt_leaves):
+        arrays[f"o{i:04d}"] = np.asarray(leaf)
+    arrays[MANIFEST] = np.frombuffer(json.dumps(manifest).encode(),
+                                     np.int8).copy()
+    weights_io.write_blob(path, arrays)
 
 
 def load_training(path: str) -> Tuple[Dict[str, Any], List[np.ndarray], int,

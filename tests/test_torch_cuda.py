@@ -430,3 +430,75 @@ def test_tf32_is_refused_on_the_card(card, monkeypatch):
     with pytest.raises(RuntimeError, match="allow_tf32"):
         vq.vq_nearest(torch.zeros((4, 18), device=card),
                       torch.zeros((1, 18), device=card))
+
+
+def _training_case(name):
+    """(loss function of the parameters on a device, CPU parameters) of
+    one trainer at a narrow width, on seeded inputs, noise passed in."""
+    from lpcnet_tpu_torch.models import lpcnet, plc, rdovae
+    from lpcnet_tpu_torch.training import lpcnet_task, plc_task, rdovae_task
+    rs = np.random.RandomState(0)
+    gen = torch.Generator().manual_seed(0)
+    if name == "lpcnet":
+        cfg = lpcnet.LPCNetConfig(gru_a_units=64, cond_size=32,
+                                  embed_sig_size=16, embed_pitch_size=8)
+        batch = {"sig_in": rs.randn(2, 480).astype(np.float32) * 1000,
+                 "sig_out": rs.randn(2, 480).astype(np.float32) * 1000,
+                 "features": FEATS[None, :7, :20].repeat(2, 0),
+                 "periods": rs.randint(33, 255, (2, 7)).astype(np.int32),
+                 "lpc": FEATS[None, 2:5, 20:36].repeat(2, 0)}
+        return (lambda p, d: lpcnet_task.loss_fn(
+            p, {k: torch.as_tensor(v, device=d) for k, v in batch.items()},
+            cfg), lpcnet.init_params(gen, cfg))
+    if name == "plc":
+        feats = rs.randn(2, 12, 56).astype(np.float32)
+        draw = rs.uniform(size=(2, 12, 1)).astype(np.float32)
+        lost = (rs.uniform(size=(2, 12)) > 0.3).astype(np.int64)
+        return (lambda p, d: plc_task.loss_fn(p, plc_task.make_batch(
+            torch.as_tensor(draw, device=d), torch.as_tensor(feats, device=d),
+            torch.as_tensor(lost, device=d))),
+            plc.init_params(gen))
+    cfg = rdovae.RDOVAEConfig(cond_size=32, cond_size2=32)
+    feats = FEATS[:32, :20].reshape(2, 16, 20)
+    noise = rs.uniform(-0.5, 0.5, (2, 8, 80)).astype(np.float32)
+    q = torch.as_tensor([[3], [11]])
+    return (lambda p, d: rdovae_task.loss_fn(
+        p, torch.as_tensor(feats, device=d),
+        *rdovae_task.sample_lambda(q.to(d), 2, 8),
+        torch.as_tensor(noise, device=d), cfg),
+        rdovae.rate_aware_quant_init(rdovae.init_params(gen, cfg), cfg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["lpcnet", "plc", "rdovae"])
+def test_training_loss_and_grads_on_card_match_cpu(card, name):
+    """Each trainer's loss and gradients on the card against the CPU on
+    the same parameters and draws (narrow widths): loss relative 1e-5,
+    every gradient leaf within 1e-4 of its largest entry."""
+    from lpcnet_tpu_torch import convert
+    from lpcnet_tpu_torch.training import optim
+    loss_fn, params = _training_case(name)
+    out = {}
+    for d in (card, torch.device("cpu")):
+        (loss, _), g = optim.value_and_grad(
+            lambda p: loss_fn(p, d), convert.to_device(params, d))
+        out[d.type] = (float(loss), [x.cpu() for x in optim.tree_leaves(g)])
+    assert abs(out["cuda"][0] / out["cpu"][0] - 1) <= 1e-5
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+def test_training_refuses_tf32_on_the_card(card, monkeypatch):
+    """With TF32 allowed, the training losses and the codebook trainer
+    raise instead of running their products in TF32."""
+    from lpcnet_tpu_torch import convert
+    from lpcnet_tpu_torch.codec import vq_train
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    for name in ("lpcnet", "plc", "rdovae"):
+        loss_fn, params = _training_case(name)
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            loss_fn(convert.to_device(params, card), card)
+    with pytest.raises(RuntimeError, match="allow_tf32"):
+        vq_train.kmeans(torch.Generator(device=card),
+                        torch.zeros((8, 17), device=card), 2, 1, 0)
