@@ -123,8 +123,33 @@ Phases, each fatal on failure:
                per s, peak memory, s per dump-data pass, vq-train s,
                whether the native library loaded or was built. No sample
                kernel launches in this phase.
+  4h. dp    - multi-GPU over torch.distributed (parallel/mesh.py), each
+               rank a process of its own (mesh.spawn): an NCCL world over
+               every visible card and a gloo world of two ranks on cuda:0
+               (NCCL takes one rank per card). In each, shard_synthesis of
+               B=1024 x 4 frames of the tiled golden features (per-stream
+               seeds, rank r's block of 1024/world streams): every rank
+               launches K1 once per frame under its batch's plan (counts
+               set to 0 in the rank just before its timed run and read just
+               after it) and holds its launch against the plain loop on its
+               own state and conditions; rank 0's gathered pcm bit-identical
+               to one Synthesizer at B=1024 here. Then dryrun_training_step
+               (LPCNetConfig(), B = 2 x world, T=3): the ranks' parameters
+               equal exactly, the loss within 1e-5 (relative) of the
+               single-process step on the whole batch here. [dp] lines: ms
+               per frame per rank, the gather, the plan, ms per step.
+  4i. profile - the first traces of the device's idle share:
+               utils/profiling.parse_trace_utilization over one traced
+               Synthesizer.synthesize frame at B=1024 and B=1 and one
+               PLCEngine.step at B=1, each traced with host operators and
+               with the device alone, beside the call untraced. Fails
+               unless every trace holds sample-kernel events and its device
+               occupancy lies in (0, 1]. [profile] lines: occupancy, the
+               sample kernels' duty cycle, the top kernels by busy us. The
+               traced frames' K1 launches are held against the plain loop,
+               the PLC step's K3 launch in phase 5.
   5. holds   - for every distinct (kernel, argument set, nsamples, batch)
-               that phases 3 to 4d launched, the arguments of its last
+               that phases 3 to 4d and 4i launched, the arguments of its last
                launch in the run go through the kernel and through its
                plain version on the card: the gates of phase 2 for
                synth_samples; for teacher_advance every state field
@@ -216,6 +241,10 @@ SIG_IN_EQUAL, SIG_IN_RMS = 0.95, 1e-2
 TRAIN_BATCH, TRAIN_STEPS = 32, 8
 PLC_SEQ, PLC_BATCH = 200, 8
 RDOVAE_SEQ, RDOVAE_BATCH = 400, 8
+# phase 4h: streams and frames of stream-parallel synthesis, frames of the
+# dry-run training step, each spawned world's time limit (s)
+DP_BATCH, DP_FRAMES, DP_TRAIN_FRAMES, DP_TIMEOUT = 1024, 4, 3, 300
+PROFILE_BATCHES = (1024, 1)   # phase 4i: streams of the traced frames
 CHUNK_FRAMES = 64      # frames per call of the encode and decode commands
 BOUNDARY_FRAMES = 10   # frames of the synthesis run at the plan boundary
 GATE_FRAMES = 1     # frames of each synthesis run held against the plain one
@@ -1011,6 +1040,21 @@ def main() -> int:
     if dict(sample_cuda.launches) != before:
         raise RuntimeError("train: the training path launched a sample "
                            "kernel")
+    # ---- 4h. stream- and data-parallel worlds, each rank in its own
+    # process; 4i. the first traces of the device's idle share
+    phase("4h dp")
+    zero_counts()
+    dp = dp_phase(dev, card, params, edge)
+    print(f"[dp] this process's launches (the single-process reference, "
+          f"warm-up included): {dict(sample_cuda.launches)}")
+    if sample_cuda.launches["flat"] != 2 * DP_FRAMES \
+            or sum(sample_cuda.launches.values()) != 2 * DP_FRAMES:
+        return fail(f"dp: the reference run launched "
+                    f"{dict(sample_cuda.launches)}")
+    phase("4i profile")
+    with Recorder(sample_cuda) as rec:
+        profile_phase(dev, card, params, engines[("flat", 1)])
+    calls.update(rec.calls)
 
     # ---- 5. every launched (kernel, argument set, nsamples, batch) held
     # against its plain version on the last launch's own arguments
@@ -1302,6 +1346,9 @@ def main() -> int:
             "bound_ms_b1": sample_bound_ms(1, FS, False)[0],
             **plan_keys(variant)})
     kernels[0]["launches_codec"] = codec_runs[(big, "f32")]
+    kernels[0].update({f"launches_dp_{k}": d["launches"]
+                       for k, d in dp.items()})
+    kernels[0]["max_abs_err_dp"] = max(d["max_abs_err"] for d in dp.values())
     bound, bound_by = sample_bound_ms(big, FS, False, table_bytes=2)
     for variant, line, source in (("flat", 469, "sample_frame"),
                                   ("base", 440, "sample_frame"),
@@ -1975,6 +2022,253 @@ def train_phase(dev, card) -> None:
         if shapes != {"cb1": (1024, 17), "cb2": (1024, 17),
                       "cb3": (1024, 17), "diff4": (4096, 18)}:
             raise RuntimeError(f"train: vq-train gave {shapes}")
+
+
+def dp_rank(rank, world, device, batch, frames) -> dict:
+    """One rank of phase 4h, in a process of its own (parallel/mesh.spawn):
+    shard_synthesis of `batch` streams of tiled_features, this rank's
+    block, `frames` frames (warmed once; launch counts set to 0 just before
+    the timed run and read just after it), the pcm gathered onto rank 0;
+    the rank's launches held against the plain loop on its own state and
+    first GATE_FRAMES frames of conditions; then train_rank, the rank's
+    part of dryrun_training_step."""
+    import torch
+    import torch.distributed as dist
+    from lpcnet_tpu_torch.kernels import sample_cuda, sample_scan
+    from lpcnet_tpu_torch.parallel import mesh
+    from lpcnet_tpu_torch.vocoder import Synthesizer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    v = Synthesizer(device=device)
+    feats = tiled_features(batch, frames)
+    state0, synth_fn = mesh.shard_synthesis(v, batch)
+    synth_fn(state0, feats)                                   # warm
+    torch.cuda.synchronize(device)
+    for counts in (sample_cuda.launches, sample_cuda.plan_launches):
+        for k in counts:
+            counts[k] = 0
+    dist.barrier()
+    t0 = time.perf_counter()
+    _, pcm = synth_fn(state0, feats)
+    torch.cuda.synchronize(device)
+    synth_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(sample_cuda.launches)
+    plan_launches = dict(sample_cuda.plan_launches)
+    last_plan = list(sample_cuda.last_plan)
+    t0 = time.perf_counter()
+    full = mesh.gather_rows(pcm)
+    torch.cuda.synchronize(device)
+    gather_ms = (time.perf_counter() - t0) * 1e3
+    b = batch // world
+    conds = v.conditions(feats[rank * b:(rank + 1) * b])
+    c = {k: conds[k][:, :GATE_FRAMES].contiguous()
+         for k in ("cond_a", "cond_b", "lpc")}
+    st_k, pcm_k = sample_cuda.synthesize_frames(v.tables, state0, c, v.cfg)
+    st_p, pcm_p = sample_scan.synthesize_frames(v.tables, state0, c, v.cfg,
+                                                flat=True)
+    hold = {**compare_pcm(pcm_k, pcm_p),
+            "rng_exact": torch.equal(st_k["rng"], st_p["rng"]),
+            "state_equal": all(torch.equal(st_k[k], st_p[k]) for k in st_p),
+            "in_path": torch.equal(pcm[:, :GATE_FRAMES * FS], pcm_k)}
+    return {"rows": b, "pcm": None if full is None else full.cpu(),
+            "launches": launches, "plan_launches": plan_launches,
+            "last_plan": last_plan, "ms_per_frame": synth_ms / frames,
+            "gather_ms": gather_ms, "hold": hold,
+            "train": mesh.train_rank(rank, world, device, DP_TRAIN_FRAMES)}
+
+
+def dp_phase(dev, card, params, edge) -> dict:
+    """Phase 4h: stream-parallel synthesis and the data-parallel training
+    step in two worlds, each rank a spawned process (dp_rank): NCCL over
+    every visible card, and gloo with two ranks on cuda:0 (NCCL takes one
+    rank per card). Per world: every rank launched K1 once per frame under
+    its batch's plan, each launch held against the plain loop; rank 0's
+    gathered pcm bit-identical to one Synthesizer at DP_BATCH with
+    per-stream seeds, run here; the dry-run step's ranks' parameters equal
+    exactly and its loss within 1e-5 (relative) of the single-process step
+    on the whole batch, run here. Returns per world its K1 launches and
+    largest error against the plain loop; raises RuntimeError on a failed
+    gate."""
+    import torch
+    from lpcnet_tpu_torch.parallel import mesh
+    from lpcnet_tpu_torch.training import lpcnet_task, optim
+    from lpcnet_tpu_torch.vocoder import Synthesizer
+    voc = Synthesizer(params=params, device=dev)
+    feats = tiled_features(DP_BATCH, DP_FRAMES)
+    st0 = voc.reset(DP_BATCH, per_stream_rng=True)
+    voc.synthesize(st0, feats)                                   # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, ref = voc.synthesize(st0, feats)
+    torch.cuda.synchronize()
+    ref_ms = (time.perf_counter() - t0) * 1e3 / DP_FRAMES
+    ref = ref.cpu()
+    n = torch.cuda.device_count()
+    out, single = {}, {}
+    for backend, devices in (("nccl", [f"cuda:{r}" for r in range(n)]),
+                             ("gloo", ["cuda:0", "cuda:0"])):
+        world = len(devices)
+        tag = f"{backend} world of {world} ({', '.join(devices)})"
+        t0 = time.perf_counter()
+        res = mesh.spawn("chip_smoke:dp_rank", world, devices, backend,
+                         [DP_BATCH, DP_FRAMES], timeout=DP_TIMEOUT,
+                         pythonpath=[REPO])
+        wall = time.perf_counter() - t0
+        for r, o in enumerate(res):
+            h, plan = o["hold"], "L" if o["rows"] <= edge else "T"
+            print(f"[dp] {tag}, rank {r}: {o['rows']} streams x {DP_FRAMES} "
+                  f"frames: launches {o['launches']}, by plan "
+                  f"{o['plan_launches']}, the last under plan "
+                  f"{o['last_plan'][0]} with clusters of {o['last_plan'][1]}"
+                  f" (plan {plan} expected); {o['ms_per_frame']:.4f} ms per "
+                  f"frame (host clock, with conditioning), gather "
+                  f"{o['gather_ms']:.3f} ms; held against plain "
+                  f"({GATE_FRAMES} frame): rng exact {h['rng_exact']}, pcm "
+                  f"exact fraction {h['exact_frac']:.6f}, corr "
+                  f"{h['corr']:.8f}, max |d| {h['max_abs_err']}, whole state "
+                  f"equal {h['state_equal']}, the run's pcm is the kernel's "
+                  f"{h['in_path']} [{card}]")
+            if o["launches"]["flat"] != DP_FRAMES \
+                    or sum(o["launches"].values()) != DP_FRAMES \
+                    or o["plan_launches"][plan] != DP_FRAMES \
+                    or o["last_plan"][0] != plan:
+                raise RuntimeError(f"dp: {tag} rank {r} launched "
+                                   f"{o['launches']} {o['plan_launches']}")
+            if not (h["rng_exact"] and h["exact_frac"] >= GATE_EXACT
+                    and h["corr"] >= GATE_CORR and h["in_path"]):
+                raise RuntimeError(f"dp: {tag} rank {r}: the kernel "
+                                   f"disagrees with the plain version")
+        got = res[0]["pcm"]
+        same = got is not None and torch.equal(got, ref)
+        world_ms = max(o["ms_per_frame"] for o in res)
+        print(f"[dp] {tag}: gathered pcm "
+              f"{None if got is None else tuple(got.shape)} bit-identical to "
+              f"one Synthesizer at B={DP_BATCH} with per-stream seeds: "
+              f"{same}; the world {world_ms:.4f} ms per frame against one "
+              f"Synthesizer {ref_ms:.4f} (host clock); {wall:.1f} s from "
+              f"spawn to results [{card}]")
+        if not same:
+            raise RuntimeError(f"dp: {tag}: the gathered pcm differs from "
+                               f"one Synthesizer's")
+
+        B = 2 * world
+        if B not in single:
+            cfg, p0, opt, st, noise = mesh.dryrun_setup(dev)
+            batch = {k: torch.as_tensor(a, device=dev) for k, a in
+                     mesh.dryrun_batch(B, DP_TRAIN_FRAMES, cfg).items()}
+            t0 = time.perf_counter()
+            p1, _, m1 = lpcnet_task.train_step(p0, st, batch, cfg, opt,
+                                               noise)
+            torch.cuda.synchronize()
+            single[B] = (float(m1["loss"]), [x.cpu() for x in
+                                             optim.tree_leaves(p1)],
+                         (time.perf_counter() - t0) * 1e3)
+        loss1, leaves1, ms1 = single[B]
+        tr = [o["train"] for o in res]
+        leaves0 = optim.tree_leaves(tr[0]["params"])
+        equal = all(torch.equal(a, b) for o in tr[1:]
+                    for a, b in zip(leaves0, optim.tree_leaves(o["params"])))
+        rel = abs(tr[0]["loss"] / loss1 - 1)
+        worst = max(float((a - b).abs().max()) / float(b.abs().max())
+                    for a, b in zip(leaves0, leaves1))
+        print(f"[dp] train, {tag}: dryrun_training_step (LPCNetConfig(), "
+              f"B={B}, T={DP_TRAIN_FRAMES}): loss {tr[0]['loss']:.7f}, the "
+              f"single-process step {loss1:.7f}, relative {rel:.3e} (gate "
+              f"1e-5); ranks' parameters equal exactly {equal}; parameters "
+              f"against the single-process step {worst:.3e} of a leaf's "
+              f"largest entry (not gated: Adam's first step divides each "
+              f"gradient by its own size); "
+              f"{max(t['ms'] for t in tr):.1f} ms per step (single process "
+              f"{ms1:.1f}; host clock) [{card}]")
+        if not (equal and rel <= 1e-5):
+            raise RuntimeError(f"dp: {tag}: the training step's ranks differ"
+                               f" or its loss is off")
+        out[backend] = {
+            "launches": sum(o["launches"]["flat"] for o in res),
+            "max_abs_err": max(o["hold"]["max_abs_err"] for o in res)}
+    return out
+
+
+def _short(name: str) -> str:
+    """A kernel's name without its return type, arguments and long
+    template arguments."""
+    name = name.split("(")[0].replace("void ", "")
+    return name if len(name) <= 60 else name[:57] + "..."
+
+
+def profile_phase(dev, card, params, eng_b1) -> None:
+    """Phase 4i: parse_trace_utilization over one traced call each of
+    Synthesizer.synthesize (one frame at each of PROFILE_BATCHES) and
+    PLCEngine.step at B=1 (phase 3's engine on its last frame), each traced
+    twice: host operators and device (the trace() default) and the device
+    alone (cpu=False); beside them the call's untraced time (host clock,
+    synchronised). Fails unless every trace holds sample-kernel events and
+    its occupancy lies in (0, 1]. Each traced frame's K1 launch is held
+    against the plain loop on the same inputs; the PLC step's K3 launches
+    are recorded by the caller for phase 5."""
+    import tempfile
+    import torch
+    from lpcnet_tpu_torch.kernels import sample_cuda, sample_scan
+    from lpcnet_tpu_torch.utils import profiling
+    from lpcnet_tpu_torch.vocoder import Synthesizer
+    v = Synthesizer(params=params, device=dev)
+    cases = []
+    for B in PROFILE_BATCHES:
+        feats = tiled_features(B, 1)
+        cases.append((f"Synthesizer.synthesize B={B}, one frame",
+                      lambda st=v.reset(B, per_stream_rng=True), f=feats:
+                      v.synthesize(st, f)[1], (B, feats)))
+    eng, st, pcm_in, lost = eng_b1
+    fr = torch.as_tensor(pcm_in[:, -FS:], device=dev)
+    lo = torch.as_tensor(lost[:, -1], device=dev)
+    cases.append(("PLCEngine.step B=1", lambda: eng.step(st, fr, lo)[1],
+                  None))
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (what, fn, synth) in enumerate(cases):
+            wall = host_ms(fn, 3)
+            for cpu in (True, False):
+                d = os.path.join(tmp, f"{i}{'hd' if cpu else 'd'}")
+                with profiling.trace(d, cpu=cpu):
+                    out = fn()
+                u = profiling.parse_trace_utilization(d)
+                if u is None:
+                    raise RuntimeError(f"profile: {what}: no device event")
+                top = ", ".join(f"{_short(k)} {t:.1f}" for k, t in
+                                list(u["busy_us_by_class"].items())[:3])
+                print(f"[profile] {what}, trace of "
+                      f"{'host and device' if cpu else 'the device alone'}: "
+                      f"device occupancy {u['device_occupancy']:.4f}, sample-"
+                      f"kernel duty cycle {u['duty_cycle']:.4f}, busy "
+                      f"{u['busy_us']:.1f} of a {u['span_us']:.1f}-us span; "
+                      f"top kernels by busy us: {top}; the call untraced "
+                      f"{wall * 1e3:.1f} us (host clock) [{card}]")
+                if not (0 < u["device_occupancy"] <= 1
+                        and u["duty_cycle"] > 0):
+                    raise RuntimeError(f"profile: {what}: occupancy "
+                                       f"{u['device_occupancy']}, no sample "
+                                       f"kernel in the trace")
+            if synth is None:
+                continue
+            # the traced frame's K1 launch against the plain loop
+            B, feats = synth
+            st0 = v.reset(B, per_stream_rng=True)
+            conds = v.conditions(feats)
+            c = {k: conds[k].contiguous() for k in ("cond_a", "cond_b",
+                                                     "lpc")}
+            st_k, pcm_k = sample_cuda.synthesize_frames(v.tables, st0, c,
+                                                        v.cfg)
+            st_p, pcm_p = sample_scan.synthesize_frames(v.tables, st0, c,
+                                                        v.cfg, flat=True)
+            g = compare_pcm(pcm_k, pcm_p)
+            ok = torch.equal(st_k["rng"], st_p["rng"]) \
+                and g["exact_frac"] >= GATE_EXACT and g["corr"] >= GATE_CORR
+            print(f"[profile] {what}: the traced pcm is the kernel's "
+                  f"{torch.equal(out, pcm_k)}; kernel vs plain: pcm exact "
+                  f"fraction {g['exact_frac']:.6f}, max |d| "
+                  f"{g['max_abs_err']}, rng exact and gates met {ok}")
+            if not (ok and torch.equal(out, pcm_k)):
+                raise RuntimeError(f"profile: {what}: the kernel disagrees "
+                                   f"with the plain version")
 
 
 def print_phases(sample_cuda, v, card, cases, teacher=False) -> None:

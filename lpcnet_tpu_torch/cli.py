@@ -34,6 +34,9 @@ Every command but dump-weights-blob (numpy only) takes --device (default:
 the card; --device cpu runs the plain PyTorch paths). Feature files are
 float32 frames of 36; audio is 16-bit little-endian PCM at 16 kHz
 (headerless, or .wav on input); a packet is 8 bytes per 40 ms (1.6 kb/s).
+--weights and --plc-weights of synthesis, decode and plc, and
+train-lpcnet's --retrain, also take a reference Keras .h5 checkpoint
+(convert.load_lpcnet_model / load_plc_model; reading one needs h5py).
 Omitted --weights, --plc-weights and --codebooks load
 examples/speech_lpcnet_params.bin, examples/speech_plc_params.bin (the PLC
 network, also plc-test's --weights), examples/speech_dred_params.bin (the
@@ -43,6 +46,7 @@ bf16: the frame kernel's embedding tables in bfloat16), as the JAX
 package's Synthesizer does.
 """
 import argparse
+import dataclasses
 import os
 import sys
 import time
@@ -210,8 +214,9 @@ def cmd_decode(args) -> int:
         print(f"warning: {args.input}: trailing "
               f"{raw.size % LPCNET_COMPRESSED_SIZE} bytes ignored",
               file=sys.stderr)
-    params = convert.load_lpcnet(args.weights, device=args.device)
-    voc = Synthesizer(params=params, device=args.device,
+    params, cfg = convert.load_lpcnet_model(args.weights,
+                                            device=args.device)
+    voc = Synthesizer(cfg, params=params, device=args.device,
                       tables=_kernel_tables())
     cbs = load_codebooks(args.codebooks, voc.device)
     bufs = torch.as_tensor(raw[:n_sf * LPCNET_COMPRESSED_SIZE].reshape(
@@ -238,8 +243,9 @@ def cmd_synthesis(args) -> int:
               file=sys.stderr)
         return 1
     feats = read_features(args.input)
-    params = convert.load_lpcnet(args.weights, device=args.device)
-    voc = Synthesizer(params=params, device=args.device,
+    params, cfg = convert.load_lpcnet_model(args.weights,
+                                            device=args.device)
+    voc = Synthesizer(cfg, params=params, device=args.device,
                       tables=_kernel_tables())
     if args.streaming:
         state, synth = voc.reset_streaming(1), voc.synthesize_streaming
@@ -298,11 +304,13 @@ def cmd_plc(args) -> int:
     cls = (NonCausalPLCEngine if noncausal
            else StrictCausalPLCEngine if args.options == "strict"
            else PLCEngine)
-    engine = cls(
-        convert.load_lpcnet(args.weights, device=args.device),
-        convert.load_plc(args.plc_weights, device=args.device),
-        options=PLCOptions(remove_dc="dc" in args.options),
-        device=args.device)
+    params, cfg = convert.load_lpcnet_model(
+        args.weights, cls._default_cfg(), device=args.device)
+    plc_params, plc_cfg = convert.load_plc_model(args.plc_weights,
+                                                 device=args.device)
+    engine = cls(params, plc_params, cfg, plc_cfg,
+                 options=PLCOptions(remove_dc="dc" in args.options),
+                 device=args.device)
     state = engine.init_state(1)
     outs = []
     for f in range(n_fr):
@@ -715,7 +723,10 @@ def cmd_train_lpcnet(args) -> int:
     params, opt_state, step, epoch0 = _start(
         args, opt, lambda g: lpcnet.init_params(g, cfg), dev)
     if args.retrain and not args.resume:
-        params = convert.load_lpcnet(args.retrain, device=dev)
+        params, rcfg = convert.load_lpcnet_model(args.retrain, cfg,
+                                                 device=dev)
+        # a .h5 brings its own widths; --e2e and --gamma stay the recipe's
+        cfg = dataclasses.replace(rcfg, e2e=args.e2e, lpc_gamma=args.gamma)
         opt_state = opt.init(params)
     # schedules: from scratch or quantize-finetune (train_lpcnet.py:303-317)
     t0, t1, iv = (10000, 30000, 100) if args.quantize else (2000, 40000, 400)
@@ -892,16 +903,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="codebook blob (default: examples/"
                    "codec_codebooks.bin)")
     p.add_argument("--weights", default=None,
-                   help="vocoder checkpoint, save_params or training "
-                   "(default: shipped vocoder)")
+                   help="vocoder checkpoint, save_params, training or "
+                   "Keras .h5 (default: shipped vocoder)")
     p.add_argument("--device", default=None, help=device_help)
     p.set_defaults(fn=cmd_decode)
     p = sub.add_parser("synthesis", help="feature frames -> PCM")
     p.add_argument("input", help="float32 feature file (36 per frame)")
     p.add_argument("output", help="s16le PCM output")
     p.add_argument("--weights", default=None,
-                   help="vocoder checkpoint, save_params or training "
-                   "(default: shipped vocoder)")
+                   help="vocoder checkpoint, save_params, training or "
+                   "Keras .h5 (default: shipped vocoder)")
     p.add_argument("--streaming", action="store_true",
                    help="reference-exact streaming engine (causal convs, "
                    "FEATURES_DELAY warm-up silence)")
@@ -920,9 +931,11 @@ def build_parser() -> argparse.ArgumentParser:
                    "(lpcnet_demo.c:120-127) plus strict = the replica of "
                    "the reference's default causal engine")
     p.add_argument("--weights", default=None,
-                   help="vocoder checkpoint (default: shipped vocoder)")
+                   help="vocoder checkpoint or Keras .h5 (default: "
+                   "shipped vocoder)")
     p.add_argument("--plc-weights", default=None,
-                   help="PLC checkpoint (default: shipped PLC network)")
+                   help="PLC checkpoint or Keras .h5 (default: shipped PLC "
+                   "network)")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random loss pattern")
     p.add_argument("--device", default=None, help=device_help)
@@ -1038,7 +1051,8 @@ def _training_parsers(sub, device_help) -> None:
     p.add_argument("--quantize", action="store_true",
                    help="int8 quantize-finetune schedule")
     p.add_argument("--retrain", default=None,
-                   help="params checkpoint to warm-start from")
+                   help="params checkpoint, or reference Keras .h5, to "
+                   "warm-start from")
     p.add_argument("--density", type=float, nargs=3,
                    default=[0.05, 0.05, 0.2])
     p.add_argument("--grub-density", type=float, nargs=3,

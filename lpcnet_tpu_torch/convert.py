@@ -68,6 +68,35 @@ def load_plc(path: Optional[str] = None, device=None) -> Dict[str, Any]:
     return params_from_numpy(load_model_params(path or DEFAULT_PLC), device)
 
 
+def load_lpcnet_model(path: Optional[str] = None, default_cfg=None,
+                      device=None):
+    """Vocoder parameters and config (the dispatch of lpcnet_tpu/cli.py::
+    load_lpcnet_model): a .h5 file is a reference Keras checkpoint, whose
+    widths, lpc_gamma, lookahead and flag_e2e make the config
+    (utils/import_keras.py); anything else is read by load_lpcnet and
+    takes default_cfg (None: LPCNetConfig()). Returns (params on
+    `device`, LPCNetConfig)."""
+    from .models import lpcnet
+    if path and path.endswith(".h5"):
+        from .utils import import_keras
+        tree, cfg = import_keras.import_lpcnet_h5(path)
+        return params_from_numpy(tree, device), cfg
+    return load_lpcnet(path, device), default_cfg or lpcnet.LPCNetConfig()
+
+
+def load_plc_model(path: Optional[str] = None, device=None):
+    """PLC-network parameters and config: a .h5 file through
+    utils/import_keras.py (as lpcnet_tpu/cli.py's plc command reads one),
+    anything else through load_plc with PLCConfig(). Returns (params on
+    `device`, PLCConfig)."""
+    from .models import plc
+    if path and path.endswith(".h5"):
+        from .utils import import_keras
+        tree, cfg = import_keras.import_plc_h5(path)
+        return params_from_numpy(tree, device), cfg
+    return load_plc(path, device), plc.PLCConfig()
+
+
 def load_dred(path: Optional[str] = None, device=None):
     """RDO-VAE parameters and config (the port of lpcnet_tpu/cli.py::
     load_dred_model); path None loads the shipped

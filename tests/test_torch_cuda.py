@@ -502,3 +502,45 @@ def test_training_refuses_tf32_on_the_card(card, monkeypatch):
     with pytest.raises(RuntimeError, match="allow_tf32"):
         vq_train.kmeans(torch.Generator(device=card),
                         torch.zeros((8, 17), device=card), 2, 1, 0)
+
+
+DP_WORKER = """
+import numpy as np
+import torch
+from lpcnet_tpu_torch.parallel import mesh
+from lpcnet_tpu_torch.vocoder import Synthesizer
+
+
+def synth(rank, world, device, feats_path):
+    feats = np.load(feats_path)
+    voc = Synthesizer(device=device)
+    state, synth_fn = mesh.shard_synthesis(voc, len(feats), gather=True)
+    _, pcm = synth_fn(state, feats)
+    return {"pcm": None if pcm is None else pcm.cpu()}
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+def test_shard_synthesis_on_the_card_equals_one_synthesizer(card, backend,
+                                                            tmp_path):
+    """Stream-parallel synthesis of 64 streams x 2 frames, gathered onto
+    rank 0, bit for bit one Synthesizer on the whole batch with per-stream
+    seeds: an NCCL world over every visible card, and two gloo ranks on
+    cuda:0 (32 streams each, plan L)."""
+    from lpcnet_tpu_torch.parallel import mesh
+    B = 64
+    offs = (5 * np.arange(B)) % (len(FEATS) - 2)
+    feats = np.stack([FEATS[o:o + 2] for o in offs])
+    np.save(tmp_path / "f.npy", feats)
+    (tmp_path / "dp_card_worker.py").write_text(DP_WORKER)
+    n = torch.cuda.device_count()
+    devices = ([f"cuda:{r}" for r in range(n)] if backend == "nccl"
+               else ["cuda:0", "cuda:0"])
+    out = mesh.spawn("dp_card_worker:synth", len(devices), devices, backend,
+                     [str(tmp_path / "f.npy")], timeout=300,
+                     pythonpath=[str(tmp_path)])
+    voc = Synthesizer(device=card)
+    _, pcm = voc.synthesize(voc.reset(B, per_stream_rng=True), feats)
+    assert torch.equal(out[0]["pcm"], pcm.cpu())
+    assert all(o["pcm"] is None for o in out[1:])
