@@ -148,9 +148,39 @@ Phases, each fatal on failure:
                sample kernels' duty cycle, the top kernels by busy us. The
                traced frames' K1 launches are held against the plain loop,
                the PLC step's K3 launch in phase 5.
+  4j. verify, bench, eval - lpcnet_tpu_torch.verify.verify_on_device():
+               every kernel against its oracle at B=1024 with the JAX
+               package's gate names and thresholds, the fused variants
+               against base, and a 3-frame strict run through the kernels
+               against the same engine through the plain loops. Then
+               lpcnet_tpu_torch.bench.main on that report (verify does not
+               run again) at bench.py's default sizes, BENCH_ITERS timed
+               calls per throughput stage: its lines in bench.py's order
+               (the latency lines named _cuda_ms), verify at 1.0, the
+               headline last. Through main's on_stage the counts are set
+               to 0 just before and read just after each stage: the
+               headline (K1 under plan T, 1024 streams x 50 frames, a
+               warm-up and 5 timed calls), the latency stage (K1 under
+               plan L at B=1 and B=8, 201 calls each) and the PLC stage
+               (K3 under plan T, 1024 x 8 frames); no other stage
+               launches a sample kernel. The headline's first frame and
+               the latency stage's last call at B=1 and at B=8 are held
+               against the plain loop with the gates of phase 2, and the
+               headline's window is timed again untraced. Then the
+               evaluations and fits of lpcnet_tpu_torch/tools/ with the
+               shipped artifacts: eval_lpcnet on the golden speech (K1
+               under plan L, one launch per frame; within EVAL_JAX_TOL of
+               the JAX tool's numbers on the CPU and well above random
+               init), eval_plc on a btest file that dump-data makes on the
+               card, eval_dred at 16 levels, train_codebooks into build/,
+               fit_pade; each held against the port's CPU run of the same
+               function on a short window (EVAL_FRAMES frames, EVAL_LEVELS,
+               the shipped codebooks, a 20-step fit) with the tolerances
+               of tests/test_torch_eval_tools.py. [bench], [eval] lines.
   5. holds   - for every distinct (kernel, argument set, nsamples, batch)
-               that phases 3 to 4d and 4i launched, the arguments of its last
-               launch in the run go through the kernel and through its
+               that phases 3 to 4d, 4i and the bench of 4j launched, the
+               arguments of its last launch in the run go through the
+               kernel and through its
                plain version on the card: the gates of phase 2 for
                synth_samples; for teacher_advance every state field
                exact, against its plain version and against a fully
@@ -170,11 +200,6 @@ Phases, each fatal on failure:
                one by one and the strict step's split (its 10
                frame_net_step calls, its 8 launches, the rest; host
                clock).
-  7. verify  - lpcnet_tpu_torch.verify.verify_on_device(): every kernel
-               against its oracle at B=1024 with the JAX package's gate
-               names and thresholds, the fused variants against base, and
-               a 3-frame strict run through the kernels against the same
-               engine through the plain loops.
 A [clock] line says when each phase starts. It prints one JSON line of
 per-kernel numbers, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -245,6 +270,37 @@ RDOVAE_SEQ, RDOVAE_BATCH = 400, 8
 # dry-run training step, each spawned world's time limit (s)
 DP_BATCH, DP_FRAMES, DP_TRAIN_FRAMES, DP_TIMEOUT = 1024, 4, 3, 300
 PROFILE_BATCHES = (1024, 1)   # phase 4i: streams of the traced frames
+# phase 4j: the bench's throughput stages run JAX's default sizes with this
+# many timed calls (the latency stage its 200, the headline its 5); the
+# evaluations' short window for the CPU run, and the tolerances the CPU
+# tests state (tests/test_torch_eval_tools.py) for the card against it
+BENCH_ITERS = 1
+EVAL_FRAMES = 12
+EVAL_LEVELS = (0, 15)
+EVAL_TOL = {"autocorr": 1e-5, "logspec": 5e-4, "rms_rel": 1e-5,
+            "plc_l1": 1e-5, "dred_rel": 1e-4, "vq_rms": 1e-5,
+            "pade_seed": 2.5e-7, "pade_coef_rel": 1e-5, "pade_err_rel": 2e-3}
+# the JAX tool's numbers on the CPU (tools/eval_lpcnet.py, scan backend)
+# for the shipped vocoder on the golden speech: pitch-lag autocorrelation,
+# log-spectral correlation, rms; the card's full-length run is held within
+# EVAL_JAX_TOL of them (a free run forks at its first sample rounded the
+# other way, so the statistics agree, not the samples)
+EVAL_JAX = (0.931, 0.705, 2631.0)
+EVAL_JAX_TOL = (0.02, 0.02, 0.05)     # absolute, absolute, relative
+PADE_STEPS = 300      # steps per stage of the card's fit
+CODEBOOK_ARGS = ["--passes", "16", "--iters", "1", "--final-iters", "2"]
+# the metric names of the bench's lines on the card, in its order
+BENCH_METRICS = (
+    "features_rt_factor", "encode_rt_factor", "decode_feat_rt_factor",
+    "plc_step_rt_factor", "dred_encode_rt_factor", "dred_decode_rt_factor",
+    "train_step_samples_per_s", "frame_latency_b1_cuda_ms",
+    "frame_latency_b8_cuda_ms", "on_device_verify", "model_flops_estimate",
+    "sample_kernel_duty_cycle", "kernel_arithmetic_tflops",
+    "synthesis_rt_factor_per_chip")
+# the bench's defaults: the headline's streams, frames per call and timed
+# calls; the PLC stage's frames; the latency stage's batches and calls
+HEAD_BATCH, HEAD_FRAMES, HEAD_ITERS = 1024, 50, 5
+BENCH_PLC_FRAMES, LATENCY_ITERS = 8, 200
 CHUNK_FRAMES = 64      # frames per call of the encode and decode commands
 BOUNDARY_FRAMES = 10   # frames of the synthesis run at the plan boundary
 GATE_FRAMES = 1     # frames of each synthesis run held against the plain one
@@ -1056,6 +1112,31 @@ def main() -> int:
         profile_phase(dev, card, params, engines[("flat", 1)])
     calls.update(rec.calls)
 
+    # ---- 4j. verify_on_device: every kernel against its oracle, the strict
+    # engine through the kernels against itself through the plain loops;
+    # then the bench on that report, and the evaluations
+    phase("4j verify")
+    t0 = time.perf_counter()
+    zero_counts()
+    report = verify.verify_on_device(plc_frames=VERIFY_STRICT_FRAMES,
+                                     device=dev)
+    torch.cuda.synchronize()
+    gates_v = {k: g["measured"] for k, g in report.items()
+               if isinstance(g, dict) and "ok" in g}
+    print(f"[verify] {len(gates_v)} gates passed in "
+          f"{time.perf_counter() - t0:.1f} s, launches "
+          f"{dict(sample_cuda.launches)}: {json.dumps(gates_v)} [{card}]")
+    sp = report["strict_plc_step"]["measured"]
+    if not (report.get("ok") and sp["lost_steps"] and sp["blend_steps"]
+            and sp["good_steps"]):
+        return fail(f"verify: the strict run lacks a kind of step: {sp}")
+    phase("4j bench")
+    with Recorder(sample_cuda) as rec:
+        bench_runs = bench_phase(dev, card, report, zero_counts)
+    calls.update(rec.calls)
+    phase("4j eval")
+    eval_runs = eval_phase(dev, card, zero_counts)
+
     # ---- 5. every launched (kernel, argument set, nsamples, batch) held
     # against its plain version on the last launch's own arguments
     phase("5 holds")
@@ -1296,24 +1377,6 @@ def main() -> int:
               f"the host's issuing), the rest of the issuing "
               f"{t_issue - t_fnet:.3f} [{card}]")
 
-    # ---- 7. verify_on_device: every kernel against its oracle, the strict
-    # engine through the kernels against itself through the plain loops
-    phase("7 verify")
-    t0 = time.perf_counter()
-    zero_counts()
-    report = verify.verify_on_device(plc_frames=VERIFY_STRICT_FRAMES,
-                                     device=dev)
-    torch.cuda.synchronize()
-    gates_v = {k: g["measured"] for k, g in report.items()
-               if isinstance(g, dict) and "ok" in g}
-    print(f"[verify] {len(gates_v)} gates passed in "
-          f"{time.perf_counter() - t0:.1f} s, launches "
-          f"{dict(sample_cuda.launches)}: {json.dumps(gates_v)} [{card}]")
-    sp = report["strict_plc_step"]["measured"]
-    if not (report.get("ok") and sp["lost_steps"] and sp["blend_steps"]
-            and sp["good_steps"]):
-        return fail(f"verify: the strict run lacks a kind of step: {sp}")
-
     # ---- the kernels' line
     phase("kernels line")
     def plan_keys(name):
@@ -1346,6 +1409,8 @@ def main() -> int:
             "bound_ms_b1": sample_bound_ms(1, FS, False)[0],
             **plan_keys(variant)})
     kernels[0]["launches_codec"] = codec_runs[(big, "f32")]
+    kernels[0].update(bench_runs["k1"])
+    kernels[0]["launches_eval_lpcnet"] = eval_runs["launches"]
     kernels[0].update({f"launches_dp_{k}": d["launches"]
                        for k, d in dp.items()})
     kernels[0]["max_abs_err_dp"] = max(d["max_abs_err"] for d in dp.values())
@@ -1398,6 +1463,7 @@ def main() -> int:
                        launches_teacher=mode_counts["teacher"],
                        launches_dred_plc=dred_plc[big]["launches"],
                        launches_dred_plc_b1=dred_plc[1]["launches"],
+                       launches_bench_plc=bench_runs["plc"],
                        strict_step_ms=strict_ms[big],
                        strict_step_ms_b1=strict_ms[1],
                        launches_b1=plc_runs[("flat", 1)],
@@ -1444,7 +1510,7 @@ def dred_phase(dev, card) -> dict:
     the decoded payloads. Raises RuntimeError on a failed gate."""
     import torch
     from lpcnet_tpu_torch import cli, convert
-    from lpcnet_tpu_torch.dred import DREDCodec, roundtrip_rms
+    from lpcnet_tpu_torch.dred import DREDCodec, roundtrip
     params, cfg = convert.load_dred(device=dev)
     params_cpu, _ = convert.load_dred(device="cpu")
     dc, dc_cpu = (DREDCodec(params, cfg, device=dev),
@@ -1511,8 +1577,8 @@ def dred_phase(dev, card) -> dict:
                   "payloads": payloads, "n": n, "frames": T,
                   "speech": speech}
     f160 = feats[:1, :160]          # stream 0 is the unrotated file
-    rms = roundtrip_rms(params, cfg, f160)
-    rms_cpu = roundtrip_rms(params_cpu, cfg, f160.cpu())
+    rms = roundtrip(params, cfg, f160)[0]
+    rms_cpu = roundtrip(params_cpu, cfg, f160.cpu())[0]
     print(f"[dred] q0 round trip of 160 frames of stream 0: RMS {rms:.6f} "
           f"on the card, {rms_cpu:.6f} on the CPU (gates: < 0.8, within "
           f"2%)")
@@ -2269,6 +2335,318 @@ def profile_phase(dev, card, params, eng_b1) -> None:
             if not (ok and torch.equal(out, pcm_k)):
                 raise RuntimeError(f"profile: {what}: the kernel disagrees "
                                    f"with the plain version")
+
+
+def bench_phase(dev, card, report, zero_counts) -> dict:
+    """Phase 4j bench: lpcnet_tpu_torch.bench.main at its default sizes,
+    BENCH_ITERS timed calls per throughput stage, on phase 4j's verify
+    report (verify does not run again). Its lines print as [bench] lines.
+    Through main's on_stage the counts are set to 0 just before each stage
+    and read just after: the headline launches K1 (flat) once per frame
+    under plan T, the latency stage once per call under plan L at B=1 and
+    B=8, the PLC stage K3 once per step under plan T, and no other stage
+    launches a sample kernel. The headline's first frame and the latency
+    stage's last call at B=1 and at B=8 are held against the plain loop on
+    their own state and conditions (phase 2's gates); their pcm must be
+    the kernel's. The headline's window is then timed untraced. Returns
+    the K1 keys of the kernels line and the PLC stage's K3 launches."""
+    import contextlib
+    import io
+    import torch
+    from lpcnet_tpu_torch import bench
+    from lpcnet_tpu_torch.kernels import sample_cuda, sample_scan
+    from lpcnet_tpu_torch.vocoder import Synthesizer
+    synth = sample_cuda.synthesize_frames
+    counts, calls, held = {}, [], {}
+
+    @contextlib.contextmanager
+    def on_stage(name):
+        zero_counts()
+        calls.clear()
+        yield
+        torch.cuda.synchronize()
+        counts[name] = (dict(sample_cuda.launches),
+                        dict(sample_cuda.plan_launches), list(calls))
+
+    def frames(tables, state, conds, cfg, variant="flat"):
+        """synthesize_frames, keeping each call's batch and launches by
+        plan, and the arguments and pcm of the headline's first call and
+        of the last call at each latency batch."""
+        before = dict(sample_cuda.plan_launches)
+        st, pcm = synth(tables, state, conds, cfg, variant=variant)
+        B = conds["cond_a"].shape[0]
+        calls.append((B, {p: sample_cuda.plan_launches[p] - n
+                          for p, n in before.items()}))
+        if B != HEAD_BATCH or B not in held:
+            held[B] = {"args": (tables, state, conds, cfg), "pcm": pcm,
+                       "variant": variant}
+        return st, pcm
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        sample_cuda.synthesize_frames = frames
+        with contextlib.redirect_stdout(buf):
+            lines = bench.main(["--device", str(dev)], iters=BENCH_ITERS,
+                               report=report, on_stage=on_stage)
+    finally:
+        sample_cuda.synthesize_frames = synth
+        for line in buf.getvalue().splitlines():
+            print(f"[bench] {line}")
+    print(f"[bench] {len(lines)} lines in {time.perf_counter() - t0:.1f} s "
+          f"[{card}]")
+    got = tuple(d["metric"] for d in lines)
+    if got != BENCH_METRICS:
+        raise RuntimeError(f"bench: lines {got}, expected {BENCH_METRICS}")
+    bad = [d["metric"] for d in lines
+           if not (np.isfinite(d["value"]) and d["value"] > 0)]
+    if bad or lines[BENCH_METRICS.index("on_device_verify")]["value"] != 1.0:
+        raise RuntimeError(f"bench: lines without a positive value {bad}, "
+                           f"or verify below 1.0")
+
+    def expect(stage, kernel, n, plan, by_batch=None):
+        launches, plans, frame_calls = counts[stage]
+        print(f"[bench] {stage}: launches {launches}, by plan {plans}")
+        if launches.get(kernel, 0) != n or sum(launches.values()) != n \
+                or (n and plans[plan] != n):
+            raise RuntimeError(f"bench: {stage}: expected {n} {kernel} "
+                               f"launches under plan {plan}")
+        for B, nb in (by_batch or {}).items():
+            got = [d for b, d in frame_calls if b == B]
+            if len(got) != nb or any(d != {plan: 1, **{p: 0 for p in d
+                                                       if p != plan}}
+                                     for d in got):
+                raise RuntimeError(f"bench: {stage}: B={B} took "
+                                   f"{len(got)} calls, {got[:3]}")
+        return launches[kernel] if n else 0
+
+    n_lat = 1 + LATENCY_ITERS
+    n_head = expect("bench_synthesis", "flat", HEAD_FRAMES * (1 + HEAD_ITERS),
+                    "T")
+    expect("bench_latency", "flat", 2 * n_lat, "L", {1: n_lat, 8: n_lat})
+    n_plc = expect("bench_plc", "tf_flat",
+                   BENCH_PLC_FRAMES * (1 + BENCH_ITERS), "T")
+    for stage in counts:
+        if stage not in ("bench_synthesis", "bench_latency", "bench_plc"):
+            expect(stage, "flat", 0, "T")
+    lat = counts["bench_latency"][2]
+    n_b = {B: sum(d["L"] for b, d in lat if b == B) for B in (1, 8)}
+
+    # the headline's first frame, and the latency stage's last call at B=1
+    # and at B=8, against the plain loop
+    errs = {}
+    for B, what in ((HEAD_BATCH, "headline, its first frame"),
+                    (1, "latency, its last call"),
+                    (8, "latency, its last call")):
+        h = held[B]
+        tables, st0, conds, cfg = h["args"]
+        c = {k: conds[k][:, :GATE_FRAMES].contiguous()
+             for k in ("cond_a", "cond_b", "lpc")}
+        st_k, pcm_k = synth(tables, st0, c, cfg)
+        st_p, pcm_p = plain_frames(sample_scan, "flat", tables, st0, c, cfg)
+        g = compare_pcm(pcm_k, pcm_p)
+        rng_ok = torch.equal(st_k["rng"], st_p["rng"])
+        in_path = (h["variant"] == "flat"
+                   and torch.equal(h["pcm"][:, :GATE_FRAMES * FS], pcm_k))
+        print(f"[bench] {what} B={B} vs plain: rng exact {rng_ok}, pcm "
+              f"exact fraction {g['exact_frac']:.6f} (gate >= {GATE_EXACT}), "
+              f"corr {g['corr']:.8f} (gate >= {GATE_CORR}), max |d| "
+              f"{g['max_abs_err']}; the run's pcm is the kernel's {in_path} "
+              f"[{card}]")
+        if not (rng_ok and g["exact_frac"] >= GATE_EXACT
+                and g["corr"] >= GATE_CORR and in_path):
+            raise RuntimeError(f"bench: {what} B={B}: the kernel disagrees "
+                               f"with the plain version")
+        errs[B] = g["max_abs_err"]
+
+    # the same window untraced
+    head = lines[-1]["value"]
+    util = lines[BENCH_METRICS.index("sample_kernel_duty_cycle")]
+    v = Synthesizer(device=dev)
+    dt = bench._timed_synthesis(
+        v.synthesize, v.reset(HEAD_BATCH, per_stream_rng=True),
+        bench._random_features(HEAD_BATCH, HEAD_FRAMES, dev), HEAD_ITERS,
+        dev, None)
+    rt = HEAD_ITERS * HEAD_BATCH * HEAD_FRAMES * 0.01 / dt
+    print(f"[bench] headline window B={HEAD_BATCH} x {HEAD_FRAMES} frames x "
+          f"{HEAD_ITERS} calls: RT {head}x traced (the device alone; "
+          f"occupancy {util['device_occupancy']}, sample-kernel duty cycle "
+          f"{util['value']}%), {rt:.2f}x untraced, "
+          f"{dt * 1e3 / (HEAD_ITERS * HEAD_FRAMES):.4f} ms per frame "
+          f"untraced (host clock) [{card}]")
+    return {"k1": {"launches_bench_headline": n_head,
+                   "launches_bench_latency_b1": n_b[1],
+                   "launches_bench_latency_b8": n_b[8],
+                   "max_abs_err_bench": errs[HEAD_BATCH],
+                   "max_abs_err_bench_latency_b1": errs[1],
+                   "max_abs_err_bench_latency_b8": errs[8]},
+            "plc": n_plc}
+
+
+def eval_phase(dev, card, zero_counts) -> dict:
+    """Phase 4j eval: the port's evaluations and fits (lpcnet_tpu_torch/
+    tools/) on the card with the shipped artifacts, each held against the
+    port's CPU run of the same function with the tolerances of
+    tests/test_torch_eval_tools.py: eval_lpcnet on the golden speech
+    (counts set to 0 just before and read just after: K1 once per frame
+    under plan L, trained and random init; the first EVAL_FRAMES frames of
+    both on the same features against the CPU; the full length within
+    EVAL_JAX_TOL of the JAX tool's numbers and well above random init),
+    eval_plc on a btest file made by dump-data on the card, eval_dred at
+    all 16 levels (EVAL_LEVELS against the CPU), train_codebooks into
+    build/ (the shipped codebooks' stage and codec RMS against the CPU),
+    fit_pade (the seed and a 20-step fit against the CPU). [eval] lines.
+    Returns eval_lpcnet's launches."""
+    import contextlib
+    import io
+    import tempfile
+    import torch
+    from lpcnet_tpu_torch import cli, convert, dred
+    from lpcnet_tpu_torch.kernels import sample_cuda
+    from lpcnet_tpu_torch.models import lpcnet as lpcnet_model
+    from lpcnet_tpu_torch.tools import (eval_dred, eval_lpcnet, eval_plc,
+                                        fit_pade, train_codebooks)
+    ex = os.path.join(REPO, "examples")
+    cpu = torch.device("cpu")
+    pcm = np.fromfile(SPEECH, np.int16).astype(np.float32)
+
+    def close(tag, a, b, atol=0.0, rtol=0.0):
+        a, b = float(a), float(b)
+        print(f"[eval] {tag}: card {a!r}, cpu {b!r}, |d| {abs(a - b):.3e} "
+              f"(tolerance {atol or rtol}{' relative' if rtol else ''})")
+        if not abs(a - b) <= atol + rtol * abs(b):
+            raise RuntimeError(f"eval: {tag}: the card and the CPU differ "
+                               f"beyond the tolerance")
+
+    # eval_lpcnet
+    ckpt = os.path.join(ex, "speech_lpcnet_params.bin")
+    T = len(pcm) // FS // 4 * 4
+    zero_counts()
+    t0 = time.perf_counter()
+    rows, ref_rms = eval_lpcnet.evaluate(ckpt, SPEECH, dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(sample_cuda.launches)
+    plans = dict(sample_cuda.plan_launches)
+    print(f"[eval] eval_lpcnet: launches {launches}, by plan {plans} "
+          f"({secs:.1f} s)")
+    if launches["flat"] != 2 * T or sum(launches.values()) != 2 * T \
+            or plans["L"] != 2 * T:
+        raise RuntimeError(f"eval_lpcnet: expected {2 * T} flat launches "
+                           f"under plan L")
+    for name, (ac, sp, rms) in rows:
+        print(f"[eval] eval_lpcnet {name}, {T} frames: pitch-lag autocorr "
+              f"{ac:+.4f}, log-spec corr {sp:.4f}, rms {rms:.1f} (ref rms "
+              f"{ref_rms:.1f}); the JAX tool on the CPU, shipped: "
+              f"{EVAL_JAX[0]:+.3f}, {EVAL_JAX[1]:.3f}, {EVAL_JAX[2]:.0f} "
+              f"[{card}]")
+    (ac, sp, rms), (rac, rsp, rrms) = rows[0][1], rows[1][1]
+    if not (abs(ac - EVAL_JAX[0]) <= EVAL_JAX_TOL[0]
+            and abs(sp - EVAL_JAX[1]) <= EVAL_JAX_TOL[1]
+            and abs(rms - EVAL_JAX[2]) <= EVAL_JAX_TOL[2] * EVAL_JAX[2]):
+        raise RuntimeError(f"eval_lpcnet: the shipped vocoder on the card "
+                           f"is not within {EVAL_JAX_TOL} of the JAX tool")
+    if not (ac > rac + 0.5 and sp > rsp and rms < 0.5 * rrms):
+        raise RuntimeError("eval_lpcnet: not well above random init")
+    feats = eval_lpcnet.speech_features(pcm, dev)[:, :EVAL_FRAMES].cpu()
+    cfg = lpcnet_model.LPCNetConfig()
+    for name, p in (("trained", convert.load_lpcnet(ckpt, cpu)),
+                    ("random init", lpcnet_model.init_params(
+                        torch.Generator().manual_seed(0), cfg))):
+        a = eval_lpcnet.synth_stats(p, cfg, feats, pcm, EVAL_FRAMES, dev)
+        b = eval_lpcnet.synth_stats(p, cfg, feats, pcm, EVAL_FRAMES, cpu)
+        tag = f"eval_lpcnet {name}, first {EVAL_FRAMES} frames"
+        close(f"{tag}, autocorr", a[0], b[0], atol=EVAL_TOL["autocorr"])
+        close(f"{tag}, log-spec corr", a[1], b[1], atol=EVAL_TOL["logspec"])
+        close(f"{tag}, rms", a[2], b[2], rtol=EVAL_TOL["rms_rel"])
+
+    # eval_plc
+    ckpt = os.path.join(ex, "speech_plc_params.bin")
+    with tempfile.TemporaryDirectory() as tmp:
+        btest = os.path.join(tmp, "speech_btest.f32")
+        if cli.main(["dump-data", "btest", SPEECH, btest, "--device",
+                     str(dev)]) not in (0, None):
+            raise RuntimeError("eval_plc: dump-data btest failed")
+        n_lost, n, r = eval_plc.evaluate(ckpt, btest, device=dev)
+        _, _, r_cpu = eval_plc.evaluate(ckpt, btest, device=cpu)
+    print(f"[eval] eval_plc: lost frames {n_lost}/{n} at rate 0.25; feature "
+          f"L1 on lost frames: trained {r['trained']:.4f}, predict-zero "
+          f"{r['predict-zero']:.4f}, random init {r['random init']:.4f} "
+          f"[{card}]")
+    for k in r:
+        close(f"eval_plc {k} L1", r[k], r_cpu[k], atol=EVAL_TOL["plc_l1"])
+
+    # eval_dred
+    ckpt = os.path.join(ex, "speech_dred_params.bin")
+    t0 = time.perf_counter()
+    table = eval_dred.evaluate(ckpt, [("speech", FEATS)], tuple(range(16)),
+                               device=dev, verbose=False)
+    src = table["sources"]["speech"]
+    print(f"[eval] eval_dred ({time.perf_counter() - t0:.1f} s), "
+          f"{src['frames']} frames: {json.dumps(src['levels'])} [{card}]")
+    params_d, cfg_d = convert.load_dred(ckpt, dev)
+    params_c, _ = convert.load_dred(ckpt, cpu)
+    f = torch.as_tensor(cli.read_features(FEATS)[-src["frames"]:, :20][None])
+    for lv in EVAL_LEVELS:
+        a = dred.roundtrip(params_d, cfg_d, f.to(dev), lv)
+        b = dred.roundtrip(params_c, cfg_d, f, lv)
+        close(f"eval_dred q{lv} rms", a[0], b[0], rtol=EVAL_TOL["dred_rel"])
+        close(f"eval_dred q{lv} bits", a[1], b[1], rtol=EVAL_TOL["dred_rel"])
+
+    # train_codebooks, into build/
+    out = os.path.join(REPO, "build", "chip_smoke", "codec_codebooks.bin")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        train_codebooks.main(CODEBOOK_ARGS + ["--out", out, "--device",
+                                              str(dev)])
+    with open(out + ".json") as fh:
+        rep = json.load(fh)
+    print(f"[eval] train_codebooks {' '.join(CODEBOOK_ARGS)} "
+          f"({time.perf_counter() - t0:.1f} s): {json.dumps(rep)} [{card}]")
+    if not rep["held_stage3_rms"] < rep["rand_stage3_rms"]:
+        raise RuntimeError("train_codebooks: no better than random")
+    cbs = {k: v.numpy() for k, v in cli.load_codebooks(None, cpu).items()}
+    with contextlib.redirect_stdout(io.StringIO()):
+        held = train_codebooks.build_corpus(pcm, 2, 100003, dev)
+    a = train_codebooks.stage_rms(held, cbs, dev)
+    b = train_codebooks.stage_rms(held, cbs, cpu)
+    for k in a:
+        close(f"train_codebooks shipped {k}", a[k], b[k],
+              atol=EVAL_TOL["vq_rms"])
+    close("train_codebooks shipped codec_rms",
+          train_codebooks.codec_rms(pcm, cbs, dev),
+          train_codebooks.codec_rms(pcm, cbs, cpu), atol=EVAL_TOL["vq_rms"])
+
+    # fit_pade
+    t0 = time.perf_counter()
+    coeffs, emax, emean = fit_pade.fit(PADE_STEPS, verbose=False, device=dev)
+    print(f"[eval] fit_pade {PADE_STEPS} steps per stage "
+          f"({time.perf_counter() - t0:.1f} s): num {coeffs['num']}, den "
+          f"{coeffs['den']}, max |err| {emax:.4e}, mean |err| {emean:.4e} "
+          f"[{card}]")
+    seed = []
+    for d in (dev, cpu):
+        x, y, basis = fit_pade.grid(d)
+        e = (fit_pade.predict(fit_pade.seed_params(d), x, basis) - y).abs()
+        seed.append((float(e.max()), float(e.mean())))
+    close("fit_pade seed max |err|", seed[0][0], seed[1][0],
+          atol=EVAL_TOL["pade_seed"])
+    close("fit_pade seed mean |err|", seed[0][1], seed[1][1],
+          atol=EVAL_TOL["pade_seed"])
+    if not emax < seed[0][0]:
+        raise RuntimeError("fit_pade: the fit is no better than its seed")
+    a = fit_pade.fit(20, verbose=False, device=dev)
+    b = fit_pade.fit(20, verbose=False, device=cpu)
+    for k in ("num", "den"):
+        for i, (u, w) in enumerate(zip(a[0][k], b[0][k])):
+            close(f"fit_pade 20 steps {k}[{i}]", u, w,
+                  rtol=EVAL_TOL["pade_coef_rel"])
+    close("fit_pade 20 steps max |err|", a[1], b[1],
+          rtol=EVAL_TOL["pade_err_rel"])
+    close("fit_pade 20 steps mean |err|", a[2], b[2],
+          rtol=EVAL_TOL["pade_err_rel"])
+    return {"launches": launches["flat"]}
 
 
 def print_phases(sample_cuda, v, card, cases, teacher=False) -> None:

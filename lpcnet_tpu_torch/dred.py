@@ -92,18 +92,22 @@ class DREDCodec:
 
 
 @torch.no_grad()
-def roundtrip_rms(params, cfg: rv.RDOVAEConfig, feats: torch.Tensor,
-                  quant: int = 0) -> float:
+def roundtrip(params, cfg: rv.RDOVAEConfig, feats: torch.Tensor,
+              quant: int = 0):
     """The RDO-VAE's quality measure (the recipe of the JAX package's
-    shipped-weights test, tests/test_rdovae.py:150-181): encode feats
-    (B, T, 20), T % 8 == 0; every second latent and PVQ state; symbols of
-    every dframe at level `quant`; decode the whole sequence from the first
-    state. Returns the RMS of the decoded features against feats."""
+    shipped-weights test, tests/test_rdovae.py:150-181, and of
+    tools/eval_dred.py): encode feats (B, T, 20), T % 8 == 0; every second
+    latent and PVQ state; symbols of every dframe at level `quant`; decode
+    the whole sequence from the first state. Returns (the RMS of the
+    decoded features against feats, sq_rate_metric bits per dframe of the
+    symbols)."""
     z, state = rv.encode(params, feats, cfg)
     zd, sd = z[:, 1::2], rv.pvq_quantize(state[:, 1::2], cfg.pvq_k)
     qp = rv.quant_params(params, torch.full(zd.shape[:2], quant,
                                             device=zd.device), cfg)
-    sym = torch.round(rv.apply_dead_zone(zd * qp["scale"], qp["dead_zone"]))
-    out = rv.decode(params, sym / qp["scale"], sd[:, 0], cfg)
+    dze = rv.apply_dead_zone(zd * qp["scale"], qp["dead_zone"])
+    bits = float(rv.sq_rate_metric(dze, qp["hard"]))
+    out = rv.decode(params, torch.round(dze) / qp["scale"], sd[:, 0], cfg)
     n = min(out.shape[1], feats.shape[1])
-    return float(torch.sqrt(torch.mean((out[:, :n] - feats[:, :n]) ** 2)))
+    rms = float(torch.sqrt(torch.mean((out[:, :n] - feats[:, :n]) ** 2)))
+    return rms, bits

@@ -87,6 +87,14 @@ def gru_gates(h, zrh_in, recur, act="tanh", approx=False):
     return z * h + (1.0 - z) * hcand
 
 
+def gru_precomputed_apply(p, h, zrh_in, act="tanh", approx=False):
+    """GRU step whose input product and input bias are already folded into
+    zrh_in (compute_gru3 / compute_sparse_gru, nnet.c:375-448): GRU-A, whose
+    inputs are embedding rows precomputed as E @ Wi tables. No path of
+    either package calls it: it keeps their public functions alike."""
+    return gru_gates(h, zrh_in, h @ p["wr"] + p["br"], act, approx)
+
+
 def gru_apply(p, h, x, act="tanh", approx=False):
     """Reset-after GRU step from the input x (..., nin): the input product
     and bias, then gru_gates (nnet.c compute_gru2:281-322). Returns the new
@@ -114,6 +122,16 @@ def gru_sequence(p, x, h0, act="tanh", approx=False):
     then gru_scan runs step by step (the scan of lpcnet_tpu/models/
     rdovae.py::_gru_seq and models/plc.py::forward_sequence)."""
     return gru_scan(x @ p["wi"] + p["bi"], h0, p["wr"], p["br"], act, approx)
+
+
+def dualfc_logits(p, x, approx=False):
+    """All-class dual-FC logits, sum_c factor_c * tanh(x @ w_c + b_c)
+    (MDense with 2 channels, training_tf2/mdense.py; the C's sample_mdense,
+    nnet.c:163-214, evaluates only the rows its tree walk visits).
+    x: (..., nin) -> (..., nout)."""
+    y = torch.einsum("...i,cio->...co", x, p["w"]) + p["b"]
+    return torch.sum(activations.get("tanh", approx)(y) * p["factor"],
+                     dim=-2)
 
 
 def conv1d_step(p, mem, x, act="tanh", approx=False):

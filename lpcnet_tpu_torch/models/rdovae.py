@@ -207,6 +207,12 @@ def hard_quantize(x: torch.Tensor) -> torch.Tensor:
     return x + (torch.round(x) - x).detach()
 
 
+def noise_quantize(gen: torch.Generator, x: torch.Tensor) -> torch.Tensor:
+    """Additive U(-.5, .5) quantization noise (uniform_noise.py:53-66),
+    drawn from gen on x's device."""
+    return x + (torch.rand(x.shape, generator=gen, device=x.device) - 0.5)
+
+
 def pvq_quantize(x: torch.Tensor, k: int, iters: int = 10) -> torch.Tensor:
     """Unit-norm PVQ with k pulses and a straight-through gradient
     (rdovae.py:210-247): xn + (q - xn) with q - xn detached, rounded as the

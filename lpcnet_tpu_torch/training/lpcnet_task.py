@@ -118,10 +118,8 @@ def forward(params, batch, cfg: LPCNetConfig, noise: Noise = None,
                             gb["wr"], gb["br"], approx=cfg.approx)
 
     # dual FC with sigmoid (tree-node probabilities), then tree -> pdf
-    dfc = params["dual_fc"]
-    y = torch.einsum("bsi,cio->bsco", out_b, dfc["w"]) + dfc["b"]
-    nodes = activations.get("sigmoid", cfg.approx)(torch.sum(
-        activations.get("tanh", cfg.approx)(y) * dfc["factor"], dim=-2))
+    nodes = activations.get("sigmoid", cfg.approx)(
+        layers.dualfc_logits(params["dual_fc"], out_b, cfg.approx))
     return {"tensor_preds": tensor_preds, "real_preds": real_preds,
             "pdf": losses.tree_to_pdf(nodes), "rc": rc}
 

@@ -66,10 +66,9 @@ def forward(params, feats, quant_id,
     z, state = rv.encode(params, feats, cfg)          # (B, T/2, .)
     qp = rv.quant_params(params, quant_id, cfg)
     dze = rv.apply_dead_zone(z * qp["scale"], qp["dead_zone"])
-    if isinstance(noise, torch.Generator):
-        noise = torch.rand(dze.shape, generator=noise,
-                           device=dze.device) - 0.5
-    ndze = dze + noise          # noise quantization (uniform_noise.py:53-66)
+    # noise quantization (uniform_noise.py:53-66)
+    ndze = (rv.noise_quantize(noise, dze) if isinstance(noise, torch.Generator)
+            else dze + noise)
     dze_quant = rv.hard_quantize(dze) / qp["scale"]
     ndze_unquant = ndze / qp["scale"]
     state_q = rv.pvq_quantize(state, cfg.pvq_k)

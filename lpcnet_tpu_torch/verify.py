@@ -199,3 +199,14 @@ def verify_on_device(batch: int = 1024, frames: int = 2,
 
     report["ok"] = True
     return report
+
+
+def summary_line(report: Dict[str, Any]) -> Dict[str, Any]:
+    """One bench JSON line: 1.0 iff every gate passed."""
+    gates = {k: v for k, v in report.items() if isinstance(v, dict)
+             and "ok" in v}
+    return {"metric": "on_device_verify",
+            "value": 1.0 if all(g["ok"] for g in gates.values()) else 0.0,
+            "unit": "pass", "vs_baseline": 1.0,
+            "gates": {k: g["measured"] for k, g in gates.items()},
+            "device": report.get("device", "?")}

@@ -544,3 +544,25 @@ def test_shard_synthesis_on_the_card_equals_one_synthesizer(card, backend,
     _, pcm = voc.synthesize(voc.reset(B, per_stream_rng=True), feats)
     assert torch.equal(out[0]["pcm"], pcm.cpu())
     assert all(o["pcm"] is None for o in out[1:])
+
+
+@pytest.mark.cuda
+def test_bench_headline_runs_the_frame_kernel_under_its_plan(card,
+                                                            monkeypatch):
+    """The bench's headline at B=8 x 2 frames, one timed call after the
+    warm-up: four launches of the flat frame kernel (K1), every one under
+    plan L, and a trace of the timed call with sample-kernel time in it."""
+    from lpcnet_tpu_torch import bench
+    monkeypatch.setenv("LPCNET_BENCH_BATCH", "8")
+    monkeypatch.setenv("LPCNET_BENCH_FRAMES", "2")
+    monkeypatch.setenv("LPCNET_BENCH_ITERS", "1")
+    for counts in (sample_cuda.launches, sample_cuda.plan_launches):
+        for k in counts:
+            counts[k] = 0
+    result, rt, util = bench.bench_synthesis(card)
+    assert sample_cuda.launches["flat"] == 4
+    assert sum(sample_cuda.launches.values()) == 4
+    assert sample_cuda.plan_launches == {"L": 4, "T": 0}
+    assert result["metric"] == "synthesis_rt_factor_per_chip" and rt > 0
+    assert util is not None and 0 < util["duty_cycle"] <= 1
+    assert 0 < util["device_occupancy"] <= 1
