@@ -177,6 +177,24 @@ Phases, each fatal on failure:
                function on a short window (EVAL_FRAMES frames, EVAL_LEVELS,
                the shipped codebooks, a 20-step fit) with the tolerances
                of tests/test_torch_eval_tools.py. [bench], [eval] lines.
+  4k. graft - lpcnet_tpu_torch/graft_entry.py, the port of
+               __graft_entry__.py: entry() at B=32 (its default) and B=1,
+               each x one frame. Counts set to 0 just before and read just
+               after two eager calls of its fn (the example args, then the
+               state they left and a second frame of golden features at
+               offsets from RandomState(B)): K1 once per call under plan
+               L. Each call held against the plain loop on the same state
+               and conditions (phase 2's gates; max |d| printed); then
+               compile_step captures fn as one CUDA graph, and its replay
+               on each argument set is bit-identical to the eager call
+               (pcm and every state leaf). Eager calls and replays timed
+               (host clock, synchronised, GRAFT_REPS each; the graph's
+               replay alone by CUDA events) and each traced alone with
+               utils/profiling.trace(cpu=False), GRAFT_TRACES times: the
+               median device occupancy and busy us side by side, and the
+               replay's busy us over the graph alone's CUDA-event time.
+               Then graft_entry.dryrun_multichip
+               over every visible card. [graft] lines.
   5. holds   - for every distinct (kernel, argument set, nsamples, batch)
                that phases 3 to 4d, 4i and the bench of 4j launched, the
                arguments of its last launch in the run go through the
@@ -270,6 +288,10 @@ RDOVAE_SEQ, RDOVAE_BATCH = 400, 8
 # dry-run training step, each spawned world's time limit (s)
 DP_BATCH, DP_FRAMES, DP_TRAIN_FRAMES, DP_TIMEOUT = 1024, 4, 3, 300
 PROFILE_BATCHES = (1024, 1)   # phase 4i: streams of the traced frames
+# phase 4k: streams of the graft entry's step (its default first), the
+# timed eager calls and replays of each, and the traced calls of each whose
+# median occupancy is reported
+GRAFT_BATCHES, GRAFT_REPS, GRAFT_TRACES = (32, 1), 100, 3
 # phase 4j: the bench's throughput stages run JAX's default sizes with this
 # many timed calls (the latency stage its 200, the headline its 5); the
 # evaluations' short window for the CPU run, and the tolerances the CPU
@@ -1136,6 +1158,10 @@ def main() -> int:
     calls.update(rec.calls)
     phase("4j eval")
     eval_runs = eval_phase(dev, card, zero_counts)
+    # ---- 4k. the graft entry's step, eager and captured as a CUDA graph,
+    # and its multi-card dry run
+    phase("4k graft")
+    graft = graft_phase(dev, card, zero_counts, edge)
 
     # ---- 5. every launched (kernel, argument set, nsamples, batch) held
     # against its plain version on the last launch's own arguments
@@ -1414,6 +1440,7 @@ def main() -> int:
     kernels[0].update({f"launches_dp_{k}": d["launches"]
                        for k, d in dp.items()})
     kernels[0]["max_abs_err_dp"] = max(d["max_abs_err"] for d in dp.values())
+    kernels[0].update(graft)
     bound, bound_by = sample_bound_ms(big, FS, False, table_bytes=2)
     for variant, line, source in (("flat", 469, "sample_frame"),
                                   ("base", 440, "sample_frame"),
@@ -2481,6 +2508,139 @@ def bench_phase(dev, card, report, zero_counts) -> dict:
                    "max_abs_err_bench_latency_b1": errs[1],
                    "max_abs_err_bench_latency_b8": errs[8]},
             "plc": n_plc}
+
+
+def graft_phase(dev, card, zero_counts, edge) -> dict:
+    """Phase 4k: graft_entry.entry() at each of GRAFT_BATCHES, its fn
+    called eagerly on two argument sets (counts set to 0 just before, read
+    just after: one K1 launch per call under plan L) and held against the
+    plain loop with phase 2's gates; compile_step's replay bit-identical to
+    the eager call on both sets; eager calls and replays timed and traced;
+    then dryrun_multichip over every visible card. Returns the K1 row's
+    graft keys; raises RuntimeError on a failed check."""
+    import tempfile
+    import torch
+    from lpcnet_tpu_torch import graft_entry
+    from lpcnet_tpu_torch.kernels import sample_cuda, sample_scan
+    from lpcnet_tpu_torch.utils import profiling
+    from lpcnet_tpu_torch.vocoder import Synthesizer
+    golden = np.fromfile(FEATS, np.float32).reshape(-1, 36)
+    v = Synthesizer(device=dev)          # the entry's weights, for the holds
+    launches = replays = 0
+    errs, times = [], {}
+    same = graft_entry.same_output
+    for B in GRAFT_BATCHES:
+        if B > edge:
+            raise RuntimeError(f"graft: B={B} is beyond plan L")
+        fn, args = graft_entry.entry(batch=B)
+        offs = np.random.RandomState(B).randint(0, len(golden), B)
+        feats2 = torch.as_tensor(golden[offs][:, None], device=dev)
+        fn(*args)                                                  # warm
+        torch.cuda.synchronize()
+        zero_counts()
+        eager = fn(*args)
+        sets = [(args, eager), ((eager[0], feats2), fn(eager[0], feats2))]
+        torch.cuda.synchronize()
+        counts = dict(sample_cuda.launches)
+        by_plan = dict(sample_cuda.plan_launches)
+        tag = f"entry() B={B} x 1 frame"
+        print(f"[graft] {tag}: launches of 2 eager calls {counts}, by plan "
+              f"{by_plan}, the last under plan {sample_cuda.last_plan[0]}")
+        if counts["flat"] != 2 or sum(counts.values()) != 2 \
+                or by_plan["L"] != 2 or sample_cuda.last_plan[0] != "L":
+            raise RuntimeError(f"graft: {tag} launched {counts} {by_plan}")
+        launches += counts["flat"]
+        for i, ((st, f), out) in enumerate(sets):
+            conds = v.conditions(f)
+            c = {k: conds[k].contiguous() for k in ("cond_a", "cond_b",
+                                                     "lpc")}
+            plain = plain_frames(sample_scan, "flat", v.tables, st, c,
+                                 v.cfg)
+            g = compare_pcm(out[1], plain[1])
+            rng_ok = torch.equal(out[0]["rng"], plain[0]["rng"])
+            errs.append(g["max_abs_err"])
+            print(f"[graft] {tag}, argument set {i + 1}: eager vs plain: rng"
+                  f" exact {rng_ok}, pcm exact fraction "
+                  f"{g['exact_frac']:.6f}, corr {g['corr']:.8f}, max |d| "
+                  f"{g['max_abs_err']}, bit-identical {same(out, plain)}")
+            if not (rng_ok and g["exact_frac"] >= GATE_EXACT
+                    and g["corr"] >= GATE_CORR):
+                raise RuntimeError(f"graft: {tag}: the eager step disagrees "
+                                   f"with the plain loop")
+        t0 = time.perf_counter()
+        step = graft_entry.compile_step(fn, args)
+        capture_s = time.perf_counter() - t0
+        held = [same(step(*a), out) for a, out in sets]
+        torch.cuda.synchronize()
+        replays += step.replays
+        print(f"[graft] {tag}: captured as one CUDA graph in {capture_s:.2f} "
+              f"s (warm-up included); replay bit-identical to the eager "
+              f"call (pcm and every state leaf) on argument set 1 "
+              f"{held[0]}, set 2 {held[1]}")
+        if not all(held):
+            raise RuntimeError(f"graft: {tag}: the replay differs from the "
+                               f"eager call")
+        eager_ms = host_ms(lambda: fn(*args), GRAFT_REPS)
+        replay_ms = host_ms(lambda: step(*args), GRAFT_REPS)
+        # the graph alone, without the step's input copies and output clones
+        graph_ms = cuda_ms(step.graph.replay, GRAFT_REPS)
+        # each call traced alone GRAFT_TRACES times: a traced replay's span
+        # stretches to 1.0-2.9x the graph's untraced time, by an amount that
+        # differs between processes, while its busy time stays put
+        occ, spread = {}, {}
+        with tempfile.TemporaryDirectory() as tmp:
+            for what, call in (("eager", lambda: fn(*args)),
+                               ("replay", lambda: step(*args))):
+                us = []
+                for i in range(GRAFT_TRACES):
+                    d = os.path.join(tmp, f"{what}{i}")
+                    with profiling.trace(d, cpu=False):
+                        call()
+                    u = profiling.parse_trace_utilization(d)
+                    if u is None or not u["duty_cycle"] > 0:
+                        raise RuntimeError(f"graft: {tag}: the {what} "
+                                           f"trace holds no sample kernel")
+                    us.append(u)
+                us.sort(key=lambda u: u["device_occupancy"])
+                occ[what] = us[len(us) // 2]
+                spread[what] = (us[0]["device_occupancy"],
+                                us[-1]["device_occupancy"])
+        # the replay's busy time over the graph's untraced time: the
+        # device's share of the graph, which the trace's span cannot give
+        busy_share = occ["replay"]["busy_us"] / (graph_ms * 1e3)
+        times[f"b{B}"] = {"eager_ms": eager_ms, "replay_ms": replay_ms,
+                          "graph_ms": graph_ms,
+                          "graph_busy_share": busy_share, **{
+                              f"{w}_{k}": occ[w][k] for w in occ
+                              for k in ("device_occupancy", "busy_us")}}
+        print(f"[graft] {tag}: eager {eager_ms:.4f} ms per call, replay "
+              f"{replay_ms:.4f} ms (host clock, synchronised, {GRAFT_REPS} "
+              f"calls each after a warm-up; {eager_ms / replay_ms:.2f}x), "
+              f"the graph alone {graph_ms:.4f} ms (CUDA events); the "
+              f"median of {GRAFT_TRACES} traced calls (device alone): eager "
+              f"occupancy {occ['eager']['device_occupancy']:.4f} (range "
+              f"{spread['eager'][0]:.4f}-{spread['eager'][1]:.4f}), busy "
+              f"{occ['eager']['busy_us']:.1f} of a "
+              f"{occ['eager']['span_us']:.1f}-us span, replay "
+              f"{occ['replay']['device_occupancy']:.4f} (range "
+              f"{spread['replay'][0]:.4f}-{spread['replay'][1]:.4f}), busy "
+              f"{occ['replay']['busy_us']:.1f} of "
+              f"{occ['replay']['span_us']:.1f} us, {busy_share:.4f} of the "
+              f"graph alone; sample-kernel duty cycle "
+              f"{occ['eager']['duty_cycle']:.4f} and "
+              f"{occ['replay']['duty_cycle']:.4f} [{card}]")
+    n = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    res = graft_entry.dryrun_multichip(n)
+    tr = res["train"]
+    print(f"[graft] dryrun_multichip({n}): training step loss "
+          f"{tr[0]['loss']:.7f}, {max(t['ms'] for t in tr):.1f} ms per step; "
+          f"stream-parallel synthesis per rank "
+          f"{[r['shape'] for r in res['inference']]}, gathered "
+          f"{res['inference'][0]['gathered']}; {time.perf_counter() - t0:.1f}"
+          f" s [{card}]")
+    return {"launches_graft": launches, "replays_graft": replays,
+            "max_abs_err_graft": max(errs), "graft_ms": times}
 
 
 def eval_phase(dev, card, zero_counts) -> dict:

@@ -8,7 +8,7 @@ default is the exact torch functions.
 """
 import torch
 
-from .tables import TANSIG_TABLE
+from .tables import TANSIG_TABLE, device_constant
 
 
 def tanh_approx(x: torch.Tensor) -> torch.Tensor:
@@ -19,7 +19,7 @@ def tanh_approx(x: torch.Tensor) -> torch.Tensor:
     # clamped before the conversion, which overflows above 2^63
     i = torch.clamp(torch.floor(0.5 + 25.0 * ax), 0, 200).to(torch.int64)
     dx = ax - 0.04 * i.to(torch.float32)
-    y = torch.as_tensor(TANSIG_TABLE, device=x.device)[i]
+    y = device_constant(TANSIG_TABLE, x.device)[i]
     dy = 1.0 - y * y
     y = y + dx * dy * (1.0 - y * dx)
     return sign * y

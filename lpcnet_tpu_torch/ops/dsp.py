@@ -5,27 +5,25 @@ are small matrix products.
 
 All functions are batched over arbitrary leading dims.
 """
+import functools
+
 import numpy as np
 import torch
 
 from ..constants import FREQ_SIZE, LPC_ORDER, NB_BANDS, WINDOW_SIZE
 from .tables import (BAND_EDGE_SCALE, BAND_INTERP, COMPENSATION, DCT_TABLE,
-                     HALF_WINDOW)
+                     HALF_WINDOW, device_constant)
 
 _DCT_SCALE = float(np.float32(np.sqrt(2.0 / NB_BANDS)))
 _NBINS = BAND_INTERP.shape[0]  # 160 interpolated FFT bins
 # lag window of lpc_from_bands (freq.c:293-295)
 _LAG = (1.0 - 6e-5 * np.arange(1, LPC_ORDER + 1, dtype=np.float32) ** 2)
-
-
-def _t(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(a, device=like.device)
+_WINDOW = np.concatenate([HALF_WINDOW, HALF_WINDOW[::-1]])
 
 
 def apply_window(x: torch.Tensor) -> torch.Tensor:
     """Vorbis window on both edges (freq.c:322-328). x: (..., WINDOW_SIZE)."""
-    w = np.concatenate([HALF_WINDOW, HALF_WINDOW[::-1]])
-    return x * _t(w, x)
+    return x * device_constant(_WINDOW, x.device)
 
 
 def forward_transform(x: torch.Tensor) -> torch.Tensor:
@@ -42,18 +40,24 @@ def _power(X: torch.Tensor) -> torch.Tensor:
 def compute_band_energy(X: torch.Tensor) -> torch.Tensor:
     """18 triangular band energies (freq.c:131-154). X: (..., FREQ_SIZE)
     complex."""
-    return (_power(X) @ _t(BAND_INTERP, X)) * _t(BAND_EDGE_SCALE, X)
+    return _band_sum(_power(X))
 
 
 def compute_band_energy_inverse(X: torch.Tensor) -> torch.Tensor:
     """Band energies of 1/(|X|^2 + 1e-9) (freq.c:60-84), used by Burg."""
-    inv = 1.0 / (_power(X) + 1e-9)
-    return (inv @ _t(BAND_INTERP, X)) * _t(BAND_EDGE_SCALE, X)
+    return _band_sum(1.0 / (_power(X) + 1e-9))
+
+
+def _band_sum(p: torch.Tensor) -> torch.Tensor:
+    """Per-bin values (..., 160) summed into the 18 triangular bands."""
+    return (p @ device_constant(BAND_INTERP, p.device)
+            * device_constant(BAND_EDGE_SCALE, p.device))
 
 
 def dct(x: torch.Tensor) -> torch.Tensor:
     """DCT-II, 18-point (freq.c:218-228). x: (..., 18)."""
-    return (x.to(torch.float32) @ _t(DCT_TABLE, x)) * _DCT_SCALE
+    dct_m = device_constant(DCT_TABLE, x.device)
+    return (x.to(torch.float32) @ dct_m) * _DCT_SCALE
 
 
 def preemphasis(x: torch.Tensor, mem: torch.Tensor, coef: float = 0.85):
@@ -67,12 +71,13 @@ def preemphasis(x: torch.Tensor, mem: torch.Tensor, coef: float = 0.85):
 
 def idct(x: torch.Tensor) -> torch.Tensor:
     """Inverse DCT (freq.c:230-240). x: (..., 18)."""
-    return (x.to(torch.float32) @ _t(DCT_TABLE, x).T) * _DCT_SCALE
+    dct_m = device_constant(DCT_TABLE, x.device)
+    return (x.to(torch.float32) @ dct_m.T) * _DCT_SCALE
 
 
 def interp_band_gain(bandE: torch.Tensor) -> torch.Tensor:
     """Spread 18 band values to 161 bins (freq.c:202-215). Last bin = 0."""
-    g = bandE.to(torch.float32) @ _t(BAND_INTERP, bandE).T
+    g = bandE.to(torch.float32) @ device_constant(BAND_INTERP, bandE.device).T
     return torch.nn.functional.pad(g, (0, FREQ_SIZE - _NBINS))
 
 
@@ -134,7 +139,8 @@ def lpc_from_bands(Ex: torch.Tensor):
     # division: 320/12 == 26, so the floor constant is 26/38 (freq.c:292).
     floor_c = float(np.float32(26.0 / 38.0))
     ac0 = ac[..., 0] + ac[..., 0] * 1e-4 + floor_c
-    ac = torch.cat([ac0[..., None], ac[..., 1:] * _t(_LAG, ac)], dim=-1)
+    lag = device_constant(_LAG, ac.device)
+    ac = torch.cat([ac0[..., None], ac[..., 1:] * lag], dim=-1)
     lpc, _, err = levinson(ac)
     return lpc, err
 
@@ -144,14 +150,20 @@ def lpc_from_cepstrum(cepstrum: torch.Tensor):
     tmp = cepstrum[..., :NB_BANDS].to(torch.float32).clone()
     tmp[..., 0] += 4.0
     Ex = idct(tmp)
-    Ex = torch.pow(10.0, Ex) * _t(COMPENSATION, Ex)
+    Ex = torch.pow(10.0, Ex) * device_constant(COMPENSATION, Ex.device)
     return lpc_from_bands(Ex)
 
 
 def lpc_weighting(lpc: torch.Tensor, gamma: float) -> torch.Tensor:
     """Bandwidth expansion lpc[i] *= gamma^(i+1) (freq.c:299-308)."""
+    return lpc * device_constant(_gamma_powers(gamma), lpc.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _gamma_powers(gamma: float) -> np.ndarray:
+    """gamma^(i+1) for i < LPC_ORDER, one array per gamma."""
     g = gamma ** np.arange(1, LPC_ORDER + 1, dtype=np.float32)
-    return lpc * _t(g.astype(np.float32), lpc)
+    return g.astype(np.float32)
 
 
 def deemphasis_scan(e: torch.Tensor, mem: torch.Tensor, coef: float = 0.85):

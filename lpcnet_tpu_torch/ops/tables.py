@@ -5,7 +5,10 @@ for bit to the JAX package's: the generated lpcnet_tables.c (reference
 src/dump_lpcnet_tables.c:83-100), the band layout / compensation constants
 of src/freq.c:45-52 and the sampling logit table of src/lpcnet.c:188-191.
 """
+from typing import Dict, Tuple
+
 import numpy as np
+import torch
 
 from ..constants import NB_BANDS, OVERLAP_SIZE, WINDOW_SIZE_5MS
 
@@ -86,3 +89,20 @@ BAND_INTERP = _band_interp_matrix()          # (160, 18)
 BAND_EDGE_SCALE = np.ones(NB_BANDS, dtype=np.float32)
 BAND_EDGE_SCALE[0] = 2.0
 BAND_EDGE_SCALE[-1] = 2.0
+
+
+_on_device: Dict[tuple, Tuple[np.ndarray, torch.Tensor]] = {}
+
+
+def device_constant(a: np.ndarray, device) -> torch.Tensor:
+    """The tensor of the module-level numpy constant `a` on `device`, with
+    a's values and type: made on the first call and the same tensor on
+    every later one. An upload in every call would stall the host on a
+    pageable copy each time, and a CUDA graph cannot capture one. Keyed by
+    (a's identity, device); the cache holds `a`, so pass constants that
+    live as long as their module, never a temporary."""
+    key = (id(a), torch.device(device))
+    hit = _on_device.get(key)
+    if hit is None:
+        hit = _on_device[key] = (a, torch.as_tensor(a, device=device))
+    return hit[1]

@@ -566,3 +566,57 @@ def test_bench_headline_runs_the_frame_kernel_under_its_plan(card,
     assert result["metric"] == "synthesis_rt_factor_per_chip" and rt > 0
     assert util is not None and 0 < util["duty_cycle"] <= 1
     assert 0 < util["device_occupancy"] <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 32], ids=["B1", "B32"])
+def test_graft_entry_captured_step(card, batch):
+    """The graft entry's step (conditioning, then K1 under plan L) captured
+    as one CUDA graph: its replay is bit-identical to the eager call, and
+    the eager call to the plain loop on the same conditions, on the
+    example args and on a second state and frame of features; the
+    replays read their arguments. compile_step refuses CPU arguments."""
+    from lpcnet_tpu_torch import graft_entry
+    fn, args = graft_entry.entry(device=card, batch=batch)
+    voc = Synthesizer(device=card)
+    eager = fn(*args)
+    assert sample_cuda.last_plan[0] == "L"
+    offs = np.random.RandomState(batch).randint(0, len(FEATS), batch)
+    sets = [(args, eager)]
+    args2 = (eager[0], torch.as_tensor(FEATS[offs][:, None], device=card))
+    sets.append((args2, fn(*args2)))
+    step = graft_entry.compile_step(fn, args)
+    for (st, f), (st_e, pcm_e) in sets:
+        conds = voc.conditions(f)
+        st_p, pcm_p = sample_scan.synthesize_frames(
+            voc.tables, st, {k: conds[k].contiguous()
+                             for k in ("cond_a", "cond_b", "lpc")},
+            voc.cfg, flat=True)
+        st_r, pcm_r = step(st, f)
+        assert torch.equal(pcm_e, pcm_p) and torch.equal(pcm_r, pcm_e)
+        for k, v in st_e.items():
+            assert torch.equal(v, st_p[k]) and torch.equal(st_r[k], v), k
+    assert step.replays == 2
+    assert not torch.equal(sets[0][1][1], sets[1][1][1])
+    cpu_args = ({k: v.cpu() for k, v in args[0].items()}, args[1].cpu())
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        graft_entry.compile_step(fn, cpu_args)
+
+
+@pytest.mark.cuda
+def test_graft_capture_fails_on_a_per_call_upload(card, monkeypatch):
+    """What ops/tables.device_constant repairs: with the conditioning's
+    numpy constants uploaded in every call again (a pageable copy, which
+    waits on the stream), the step cannot be captured, and compile_step
+    raises rather than call fn eagerly. The card captures the step again
+    once the constants stay on it."""
+    from lpcnet_tpu_torch import graft_entry
+    from lpcnet_tpu_torch.ops import dsp
+    fn, args = graft_entry.entry(device=card, batch=1)
+    monkeypatch.setattr(dsp, "device_constant",
+                        lambda a, device: torch.as_tensor(a, device=device))
+    with pytest.raises(RuntimeError, match="could not be captured"):
+        graft_entry.compile_step(fn, args)
+    monkeypatch.undo()
+    step = graft_entry.compile_step(fn, args)
+    assert torch.equal(step(*args)[1], fn(*args)[1])

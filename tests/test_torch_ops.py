@@ -239,11 +239,12 @@ def test_port_imports_neither_jax_nor_lpcnet_tpu():
     assert out.returncode == 0, out.stderr[-2000:]
     names = set(out.stdout.strip().splitlines()[-1].split())
     assert len(names) >= 15
-    # the DRED, tools, DOT_PROD, multi-GPU and tooling modules, the bench
-    # and the evaluation and fitting tools are among those imported
+    # the DRED, tools, DOT_PROD, multi-GPU and tooling modules, the bench,
+    # the evaluation and fitting tools and the graft entry are among those
+    # imported
     assert {"lpcnet_tpu_torch." + m for m in (
         "dred", "models.rdovae", "utils.fec_packets", "utils.import_torch",
         "utils.weights_io", "kernels.sample_dotprod", "cli", "parallel.mesh",
         "utils.import_keras", "utils.export_ref", "utils.profiling", "bench",
         "tools.eval_lpcnet", "tools.eval_plc", "tools.eval_dred",
-        "tools.train_codebooks", "tools.fit_pade")} <= names
+        "tools.train_codebooks", "tools.fit_pade", "graft_entry")} <= names
