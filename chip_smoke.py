@@ -155,18 +155,28 @@ Phases, each fatal on failure:
                against the same engine through the plain loops. Then
                lpcnet_tpu_torch.bench.main on that report (verify does not
                run again) at bench.py's default sizes, BENCH_ITERS timed
-               calls per throughput stage: its lines in bench.py's order
+               calls per throughput stage, through the graphed entry
+               points (each stage's two warm-up calls run the first call
+               of its shape eagerly and capture the second, its timed
+               calls replay): its lines in bench.py's order
                (the latency lines named _cuda_ms), verify at 1.0, the
                headline last. Through main's on_stage the counts are set
-               to 0 just before and read just after each stage: the
-               headline (K1 under plan T, 1024 streams x 50 frames, a
-               warm-up and 5 timed calls), the latency stage (K1 under
-               plan L at B=1 and B=8, 201 calls each) and the PLC stage
-               (K3 under plan T, 1024 x 8 frames); no other stage
-               launches a sample kernel. The headline's first frame and
-               the latency stage's last call at B=1 and at B=8 are held
-               against the plain loop with the gates of phase 2, and the
-               headline's window is timed again untraced. Then the
+               to 0 just before and read just after each stage, launches
+               from the host in the eager calls and captures alone: the
+               headline (K1 under plan T, 1024 streams x 50 frames, 1
+               capture and 6 replays), the latency stage (K1 under plan L
+               at B=1 and B=8, a capture and 201 replays each) and the PLC
+               stage (K3 under plan T, 1024 x 8 frames); no other stage
+               launches a sample kernel, and DRED's stage captures encode
+               and decode. The launches the card ran (the eager calls'
+               and the replays') are counted beside those from the host.
+               The headline's first frame and the latency stage's eager
+               call at B=1 and at B=8, and the last replay of each of
+               those graphs (its inputs and outputs read from the graph's
+               tensors), are held against the plain loop with the gates
+               of phase 2; each replay is bit-identical to an eager
+               kernel call on its inputs. The headline's window is timed
+               again untraced. Then the
                evaluations and fits of lpcnet_tpu_torch/tools/ with the
                shipped artifacts: eval_lpcnet on the golden speech (K1
                under plan L, one launch per frame; within EVAL_JAX_TOL of
@@ -195,6 +205,30 @@ Phases, each fatal on failure:
                replay's busy us over the graph alone's CUDA-event time.
                Then graft_entry.dryrun_multichip
                over every visible card. [graft] lines.
+  4l. graphs - the entry points as CUDA graphs (utils/graphs.jit, the
+               counterpart of jax.jit): Synthesizer.synthesize (flat, base,
+               fuse, opt, each with f32 and bf16 tables),
+               synthesize_teacher, synthesize_streaming, the step of
+               PLCEngine, NonCausalPLCEngine and StrictCausalPLCEngine,
+               DREDCodec.encode and decode, at B=1 (plan L) and B=1024
+               (plan T): 3 calls of 4 frames (4 steps; DRED 3 of 64
+               frames) that carry the state; the dotprod synthesize and
+               synthesize_streaming (plain loops) at B=1, two calls of 1
+               frame. Each chain graphed is bit-identical to the same
+               chain under graphs.disabled() (pcm and every state leaf);
+               the first call of a shape runs eagerly, the second
+               captures; counts set to 0 before the graphed chain: every
+               launch is the eager call's or the capture's, under the
+               batch's plan. [graphs] lines: the first call's ms, the
+               capturing call's s and the capture alone, eager and
+               replayed ms per call (host clock, synchronised, median of
+               5), captures and replays, memory before and peak; the PLC
+               step at B=1 beside its 10-ms limit. synthesize_temperature
+               stays eager: one call at B=1 x 1 frame and what a capture
+               of its body would take. One-shot callers (a CLI chunk of 64
+               frames, eval_lpcnet's 200): a fresh synthesizer's first
+               three calls of one shape beside one eager call. One frame
+               per call at B=1 and B=8, eager and replayed (median of 20).
   5. holds   - for every distinct (kernel, argument set, nsamples, batch)
                that phases 3 to 4d, 4i and the bench of 4j launched, the
                arguments of its last launch in the run go through the
@@ -218,12 +252,17 @@ Phases, each fatal on failure:
                one by one and the strict step's split (its 10
                frame_net_step calls, its 8 launches, the rest; host
                clock).
-A [clock] line says when each phase starts. It prints one JSON line of
+Every phase but 4j's bench and 4l calls the entry points eagerly, inside
+graphs.disabled() (the counterpart of jax.disable_jit()): those phases
+count launches per call, record their arguments or time eager launches,
+and a graph launches its kernels from the host in its capture, never in
+a replay. A [clock] line says when each phase starts. It prints one JSON line of
 per-kernel numbers, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Without a CUDA device, or
 without the lpcnet_tpu_torch package beside it, it exits non-zero before
 printing any result.
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -292,6 +331,19 @@ PROFILE_BATCHES = (1024, 1)   # phase 4i: streams of the traced frames
 # timed eager calls and replays of each, and the traced calls of each whose
 # median occupancy is reported
 GRAFT_BATCHES, GRAFT_REPS, GRAFT_TRACES = (32, 1), 100, 3
+# phase 4l: streams of the graphed chains; calls per chain and frames per
+# call (synthesis), steps (the PLC engines), frames per call (DRED: 16
+# dframes, one payload); the timed calls of each; the plain-loop entry
+# points' calls of one frame and timed calls at B=1; the PLC step's limit
+GRAPH_BATCHES = (1, 1024)
+GRAPH_CALLS, GRAPH_FRAMES, GRAPH_STEPS, DRED_GRAPH_FRAMES = 3, 4, 4, 64
+GRAPH_REPS = 5       # 10 took the phase past 60 s
+GRAPH_PLAIN_CALLS, GRAPH_PLAIN_REPS = 2, 1
+# one-shot callers: a CLI chunk (cli.CHUNK_FRAMES) and eval_lpcnet's call on
+# the 200 frames of the golden features
+ONE_SHOT_FRAMES = (64, 200)
+LATENCY_REPS = 20    # one-frame calls timed eager and replayed, each batch
+PLC_STEP_LIMIT_MS = 10.0
 # phase 4j: the bench's throughput stages run JAX's default sizes with this
 # many timed calls (the latency stage its 200, the headline its 5); the
 # evaluations' short window for the CPU run, and the tolerances the CPU
@@ -490,7 +542,9 @@ def compare_pcm(pcm_k, pcm_p) -> dict:
 class Recorder:
     """Stands in for sample_cuda.synth_samples and teacher_advance while an
     engine runs: passes every call through and keeps the arguments of the
-    last call of each distinct (kernel, argument set, nsamples, batch)."""
+    last call of each distinct (kernel, argument set, nsamples, batch) that
+    launched (a call inside a CUDA graph's capture records nothing: its
+    tensors are the graph's, which a replay overwrites)."""
 
     def __init__(self, sample_cuda):
         self.mod = sample_cuda
@@ -512,13 +566,20 @@ class Recorder:
                                   "n_active") if kw.get(k) is not None)
         key = ("tf_" + kw.get("variant", "flat"), given, nsamples,
                cond["cond_a"].shape[0])
-        self.calls[key] = (tables, state, cond, cfg, nsamples, kw)
+        if not _capturing():
+            self.calls[key] = (tables, state, cond, cfg, nsamples, kw)
         return self._synth(tables, state, cond, cfg, nsamples, **kw)
 
     def teacher_advance(self, tables, state, cond, cfg, target):
         key = ("teacher", (), target.shape[1], cond["cond_a"].shape[0])
-        self.calls[key] = (tables, state, cond, cfg, target)
+        if not _capturing():
+            self.calls[key] = (tables, state, cond, cfg, target)
         return self._teacher(tables, state, cond, cfg, target)
+
+
+def _capturing() -> bool:
+    import torch
+    return torch.cuda.is_current_stream_capturing()
 
 
 def main() -> int:
@@ -534,6 +595,7 @@ def main() -> int:
     from lpcnet_tpu_torch.models import lpcnet as lpcnet_model
     from lpcnet_tpu_torch.models import plc as plc_model
     from lpcnet_tpu_torch.ops import burg
+    from lpcnet_tpu_torch.utils import graphs
     from lpcnet_tpu_torch.vocoder import Synthesizer
 
     # float32 means float32: no TF32 in matmuls or convolutions
@@ -547,6 +609,8 @@ def main() -> int:
         for counts in (sample_cuda.launches, sample_cuda.plan_launches):
             for k in counts:
                 counts[k] = 0
+        graphs.captures.clear()
+        graphs.replays.clear()
 
     def expect_plan(tag, B, n):
         """The launches of the sample loop in the run took the plan of
@@ -578,6 +642,14 @@ def main() -> int:
     print(f"[build] {time.perf_counter() - t0:.1f} s [{card}]")
     for name, log in logs.items():
         print(f"[build] {name}: {log.strip() or 'already built'}")
+
+    # The phases but 4j's bench and 4l count launches per call, record each
+    # launch's arguments (Recorder) or hold and time eager launches, so their
+    # entry points run eagerly (graphs.disabled()): a graphed entry point
+    # launches its kernels from the host in its capture, never in a replay.
+    # Phase 4l holds the graphs against eager chains.
+    eager = contextlib.ExitStack()
+    eager.enter_context(graphs.disabled())
 
     # ---- 2. the synthesis path, each run held against the plain version
     phase("2 synthesis")
@@ -1153,15 +1225,22 @@ def main() -> int:
             and sp["good_steps"]):
         return fail(f"verify: the strict run lacks a kind of step: {sp}")
     phase("4j bench")
+    eager.close()            # the bench times the graphed entry points
     with Recorder(sample_cuda) as rec:
         bench_runs = bench_phase(dev, card, report, zero_counts)
     calls.update(rec.calls)
+    eager.enter_context(graphs.disabled())
     phase("4j eval")
     eval_runs = eval_phase(dev, card, zero_counts)
     # ---- 4k. the graft entry's step, eager and captured as a CUDA graph,
     # and its multi-card dry run
     phase("4k graft")
     graft = graft_phase(dev, card, zero_counts, edge)
+    # ---- 4l. every graphed entry point against its eager chain
+    phase("4l graphs")
+    eager.close()
+    graphs_phase(dev, card, params, plc_params, zero_counts)
+    eager.enter_context(graphs.disabled())
 
     # ---- 5. every launched (kernel, argument set, nsamples, batch) held
     # against its plain version on the last launch's own arguments
@@ -1490,7 +1569,7 @@ def main() -> int:
                        launches_teacher=mode_counts["teacher"],
                        launches_dred_plc=dred_plc[big]["launches"],
                        launches_dred_plc_b1=dred_plc[1]["launches"],
-                       launches_bench_plc=bench_runs["plc"],
+                       **bench_runs["plc"],
                        strict_step_ms=strict_ms[big],
                        strict_step_ms_b1=strict_ms[1],
                        launches_b1=plc_runs[("flat", 1)],
@@ -2124,14 +2203,22 @@ def dp_rank(rank, world, device, batch, frames) -> dict:
     the timed run and read just after it), the pcm gathered onto rank 0;
     the rank's launches held against the plain loop on its own state and
     first GATE_FRAMES frames of conditions; then train_rank, the rank's
-    part of dryrun_training_step."""
+    part of dryrun_training_step. The rank's synthesis runs eagerly
+    (graphs.disabled()), as main's phases do: it counts launches per call."""
+    import torch
+    from lpcnet_tpu_torch.utils import graphs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with graphs.disabled():
+        return _dp_rank(rank, world, device, batch, frames)
+
+
+def _dp_rank(rank, world, device, batch, frames) -> dict:
     import torch
     import torch.distributed as dist
     from lpcnet_tpu_torch.kernels import sample_cuda, sample_scan
     from lpcnet_tpu_torch.parallel import mesh
     from lpcnet_tpu_torch.vocoder import Synthesizer
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     v = Synthesizer(device=device)
     feats = tiled_features(batch, frames)
     state0, synth_fn = mesh.shard_synthesis(v, batch)
@@ -2368,23 +2455,35 @@ def bench_phase(dev, card, report, zero_counts) -> dict:
     """Phase 4j bench: lpcnet_tpu_torch.bench.main at its default sizes,
     BENCH_ITERS timed calls per throughput stage, on phase 4j's verify
     report (verify does not run again). Its lines print as [bench] lines.
-    Through main's on_stage the counts are set to 0 just before each stage
-    and read just after: the headline launches K1 (flat) once per frame
-    under plan T, the latency stage once per call under plan L at B=1 and
-    B=8, the PLC stage K3 once per step under plan T, and no other stage
-    launches a sample kernel. The headline's first frame and the latency
-    stage's last call at B=1 and at B=8 are held against the plain loop on
-    their own state and conditions (phase 2's gates); their pcm must be
-    the kernel's. The headline's window is then timed untraced. Returns
-    the K1 keys of the kernels line and the PLC stage's K3 launches."""
+    The bench calls the graphed entry points (utils/graphs.py): each
+    stage's warm-up calls run the first call of its shape eagerly and
+    capture the second, and the timed calls replay it. Through main's
+    on_stage the counts are set to 0 just before each stage and read just
+    after: the headline launches K1 (flat) once per frame under plan T,
+    the latency stage once per call under plan L at B=1 and B=8, the PLC
+    stage K3 once per step under plan T, each from the host in the eager
+    call and the capture of its graph and never in a replay, and no other
+    stage launches a sample kernel; the graphs captured and replayed per
+    stage (graphs.captures, graphs.replays) are counted beside them, and
+    the launches the card ran are the eager ones plus the replays times a
+    captured call's. The headline's first frame and the latency stage's
+    eager call at B=1 and at B=8 are held against the plain loop on their
+    own state and conditions (phase 2's gates), their pcm the kernel's;
+    so are the last replay of each of those graphs, its inputs and
+    outputs read from the graph's own tensors after the stage, and the
+    replay's pcm and state are bit-identical to an eager kernel call on
+    the same inputs. The headline's window is then timed untraced.
+    Returns the K1 keys of the kernels line and the PLC stage's K3
+    launches."""
     import contextlib
     import io
     import torch
     from lpcnet_tpu_torch import bench
     from lpcnet_tpu_torch.kernels import sample_cuda, sample_scan
+    from lpcnet_tpu_torch.utils import graphs
     from lpcnet_tpu_torch.vocoder import Synthesizer
     synth = sample_cuda.synthesize_frames
-    counts, calls, held = {}, [], {}
+    counts, calls, held, captured = {}, [], {}, {}
 
     @contextlib.contextmanager
     def on_stage(name):
@@ -2393,20 +2492,30 @@ def bench_phase(dev, card, report, zero_counts) -> dict:
         yield
         torch.cuda.synchronize()
         counts[name] = (dict(sample_cuda.launches),
-                        dict(sample_cuda.plan_launches), list(calls))
+                        dict(sample_cuda.plan_launches), list(calls),
+                        dict(graphs.captures), dict(graphs.replays))
 
     def frames(tables, state, conds, cfg, variant="flat"):
-        """synthesize_frames, keeping each call's batch and launches by
-        plan, and the arguments and pcm of the headline's first call and
-        of the last call at each latency batch."""
+        """synthesize_frames, keeping each call's batch, launches by plan
+        and whether a graph captured it, the arguments and pcm of the first
+        eager call at each batch (the state copied), and the tensors of
+        the first capture at each batch: the graph's own, which hold the
+        last replay's inputs and outputs."""
         before = dict(sample_cuda.plan_launches)
         st, pcm = synth(tables, state, conds, cfg, variant=variant)
         B = conds["cond_a"].shape[0]
+        capturing = _capturing()
         calls.append((B, {p: sample_cuda.plan_launches[p] - n
-                          for p, n in before.items()}))
-        if B != HEAD_BATCH or B not in held:
-            held[B] = {"args": (tables, state, conds, cfg), "pcm": pcm,
-                       "variant": variant}
+                          for p, n in before.items()}, capturing))
+        if capturing:
+            captured.setdefault(B, {"args": (tables, state, conds, cfg),
+                                    "st": st, "pcm": pcm,
+                                    "variant": variant})
+        else:
+            held.setdefault(B, {"args": (tables, {k: v.clone()
+                                                  for k, v in state.items()},
+                                         conds, cfg),
+                                "pcm": pcm, "variant": variant})
         return st, pcm
 
     buf = io.StringIO()
@@ -2431,15 +2540,24 @@ def bench_phase(dev, card, report, zero_counts) -> dict:
         raise RuntimeError(f"bench: lines without a positive value {bad}, "
                            f"or verify below 1.0")
 
-    def expect(stage, kernel, n, plan, by_batch=None):
-        launches, plans, frame_calls = counts[stage]
-        print(f"[bench] {stage}: launches {launches}, by plan {plans}")
+    def expect(stage, kernel, n, plan, by_batch=None, graphed=None):
+        """n launches of kernel from the host under plan; by_batch: calls
+        of the frame kernel per batch; graphed: {entry point: (captures,
+        replays)}. Returns the launches from the host."""
+        launches, plans, frame_calls, made, replayed = counts[stage]
+        got = {e: (made.get(e, 0), replayed.get(e, 0))
+               for e in set(made) | set(replayed)}
+        print(f"[bench] {stage}: launches from the host {launches}, by plan "
+              f"{plans}; graphs (captures, replays) {got}")
         if launches.get(kernel, 0) != n or sum(launches.values()) != n \
                 or (n and plans[plan] != n):
             raise RuntimeError(f"bench: {stage}: expected {n} {kernel} "
                                f"launches under plan {plan}")
+        if graphed is not None and got != graphed:
+            raise RuntimeError(f"bench: {stage}: graphs {got}, expected "
+                               f"{graphed}")
         for B, nb in (by_batch or {}).items():
-            got = [d for b, d in frame_calls if b == B]
+            got = [d for b, d, _ in frame_calls if b == B]
             if len(got) != nb or any(d != {plan: 1, **{p: 0 for p in d
                                                        if p != plan}}
                                      for d in got):
@@ -2447,44 +2565,99 @@ def bench_phase(dev, card, report, zero_counts) -> dict:
                                    f"{len(got)} calls, {got[:3]}")
         return launches[kernel] if n else 0
 
-    n_lat = 1 + LATENCY_ITERS
-    n_head = expect("bench_synthesis", "flat", HEAD_FRAMES * (1 + HEAD_ITERS),
-                    "T")
-    expect("bench_latency", "flat", 2 * n_lat, "L", {1: n_lat, 8: n_lat})
-    n_plc = expect("bench_plc", "tf_flat",
-                   BENCH_PLC_FRAMES * (1 + BENCH_ITERS), "T")
+    # each graph launches from the host in its eager call and its capture;
+    # of n calls of one signature, all but the w - 1 eager ones replay
+    w = graphs.CAPTURE_CALL
+    synth_name, plc_name = "Synthesizer.synthesize", "PLCEngine.step"
+    n_head = expect("bench_synthesis", "flat", HEAD_FRAMES * w, "T",
+                    graphed={synth_name: (1, 1 + HEAD_ITERS)})
+    expect("bench_latency", "flat", 2 * w, "L", {1: w, 8: w},
+           graphed={synth_name: (2, 2 * (1 + LATENCY_ITERS))})
+    # run() steps BENCH_PLC_FRAMES frames a call, w + BENCH_ITERS calls
+    n_plc = expect("bench_plc", "tf_flat", w, "T", graphed={
+        plc_name: (1, BENCH_PLC_FRAMES * (w + BENCH_ITERS) - (w - 1))})
+    # encode: w + BENCH_ITERS calls timed and one more for decode's input
+    expect("bench_dred", "flat", 0, "T", graphed={
+        "DREDCodec.encode": (1, BENCH_ITERS + 2),
+        "DREDCodec.decode": (1, BENCH_ITERS + 1)})
     for stage in counts:
-        if stage not in ("bench_synthesis", "bench_latency", "bench_plc"):
-            expect(stage, "flat", 0, "T")
-    lat = counts["bench_latency"][2]
-    n_b = {B: sum(d["L"] for b, d in lat if b == B) for B in (1, 8)}
+        if stage not in ("bench_synthesis", "bench_latency", "bench_plc",
+                         "bench_dred"):
+            expect(stage, "flat", 0, "T", graphed={})
 
-    # the headline's first frame, and the latency stage's last call at B=1
-    # and at B=8, against the plain loop
+    def host_and_device(stage, B, replays):
+        """K1's launches from the host at batch B in the stage (the eager
+        calls' and the capture's) and the launches the card ran: the eager
+        calls' and `replays` times the captured call's."""
+        frame_calls = counts[stage][2]
+        eager = sum(sum(d.values()) for b, d, cap in frame_calls
+                    if b == B and not cap)
+        per_call = [sum(d.values()) for b, d, cap in frame_calls
+                    if b == B and cap]
+        if len(per_call) != 1:
+            raise RuntimeError(f"bench: {stage}: B={B} captured "
+                               f"{len(per_call)} calls")
+        return eager + per_call[0], eager + replays * per_call[0]
+
+    host, dev_n = {}, {}
+    host["headline"], dev_n["headline"] = host_and_device(
+        "bench_synthesis", HEAD_BATCH, 1 + HEAD_ITERS)
+    for B in (1, 8):
+        host[B], dev_n[B] = host_and_device("bench_latency", B,
+                                            1 + LATENCY_ITERS)
+    if host["headline"] != n_head:
+        raise RuntimeError("bench: the headline's launches by call do not "
+                           "add up")
+    plc_replays = counts["bench_plc"][4][plc_name]
+    plc_dev = (n_plc - 1) + plc_replays      # one of them in the capture
+    print(f"[bench] launches the card ran (eager calls and replays; from "
+          f"the host in brackets): headline K1 {dev_n['headline']} "
+          f"({host['headline']}), latency K1 B=1 {dev_n[1]} ({host[1]}), "
+          f"B=8 {dev_n[8]} ({host[8]}), PLC K3 {plc_dev} ({n_plc})")
+
+    # the headline's first frame, and the latency stage's eager call at
+    # B=1 and at B=8, against the plain loop; then the last replay of each
+    # of their graphs: against an eager kernel call on its own inputs, bit
+    # for bit, and against the plain loop
     errs = {}
-    for B, what in ((HEAD_BATCH, "headline, its first frame"),
-                    (1, "latency, its last call"),
-                    (8, "latency, its last call")):
-        h = held[B]
-        tables, st0, conds, cfg = h["args"]
-        c = {k: conds[k][:, :GATE_FRAMES].contiguous()
-             for k in ("cond_a", "cond_b", "lpc")}
-        st_k, pcm_k = synth(tables, st0, c, cfg)
-        st_p, pcm_p = plain_frames(sample_scan, "flat", tables, st0, c, cfg)
-        g = compare_pcm(pcm_k, pcm_p)
-        rng_ok = torch.equal(st_k["rng"], st_p["rng"])
-        in_path = (h["variant"] == "flat"
-                   and torch.equal(h["pcm"][:, :GATE_FRAMES * FS], pcm_k))
-        print(f"[bench] {what} B={B} vs plain: rng exact {rng_ok}, pcm "
-              f"exact fraction {g['exact_frac']:.6f} (gate >= {GATE_EXACT}), "
-              f"corr {g['corr']:.8f} (gate >= {GATE_CORR}), max |d| "
-              f"{g['max_abs_err']}; the run's pcm is the kernel's {in_path} "
-              f"[{card}]")
-        if not (rng_ok and g["exact_frac"] >= GATE_EXACT
-                and g["corr"] >= GATE_CORR and in_path):
-            raise RuntimeError(f"bench: {what} B={B}: the kernel disagrees "
-                               f"with the plain version")
-        errs[B] = g["max_abs_err"]
+    for B, what in ((HEAD_BATCH, "headline"), (1, "latency"),
+                    (8, "latency")):
+        for kind, h in (("its eager call", held[B]),
+                        ("its last replay", captured[B])):
+            tables, st0, conds, cfg = h["args"]
+            st0 = {k: v.clone() for k, v in st0.items()}
+            conds = {k: conds[k].clone() for k in ("cond_a", "cond_b",
+                                                   "lpc")}
+            replay_ok = True
+            if "st" in h:
+                st_e, pcm_e = synth(tables, st0, conds, cfg,
+                                    variant=h["variant"])
+                replay_ok = torch.equal(pcm_e, h["pcm"]) and all(
+                    torch.equal(v, h["st"][k]) for k, v in st_e.items())
+            c = {k: conds[k][:, :GATE_FRAMES].contiguous() for k in conds}
+            st_k, pcm_k = synth(tables, st0, c, cfg)
+            st_p, pcm_p = plain_frames(sample_scan, "flat", tables, st0, c,
+                                       cfg)
+            g = compare_pcm(pcm_k, pcm_p)
+            rng_ok = torch.equal(st_k["rng"], st_p["rng"])
+            in_path = (h["variant"] == "flat"
+                       and torch.equal(h["pcm"][:, :GATE_FRAMES * FS],
+                                       pcm_k))
+            print(f"[bench] {what} B={B}, {kind}, its first "
+                  f"{GATE_FRAMES} frame(s) vs plain: rng exact {rng_ok}, pcm "
+                  f"exact fraction {g['exact_frac']:.6f} (gate >= "
+                  f"{GATE_EXACT}), corr {g['corr']:.8f} (gate >= "
+                  f"{GATE_CORR}), max |d| {g['max_abs_err']}; the run's pcm "
+                  f"is the kernel's {in_path}"
+                  + (f"; pcm and state bit-identical to an eager call on "
+                     f"the replay's inputs {replay_ok}" if "st" in h else "")
+                  + f" [{card}]")
+            if not (rng_ok and g["exact_frac"] >= GATE_EXACT
+                    and g["corr"] >= GATE_CORR and in_path and replay_ok):
+                raise RuntimeError(f"bench: {what} B={B}, {kind}: the kernel "
+                                   f"disagrees with the plain version or "
+                                   f"the replay with the eager call")
+            errs[B] = max(errs.get(B, 0.0), g["max_abs_err"])
 
     # the same window untraced
     head = lines[-1]["value"]
@@ -2501,13 +2674,17 @@ def bench_phase(dev, card, report, zero_counts) -> dict:
           f"{util['value']}%), {rt:.2f}x untraced, "
           f"{dt * 1e3 / (HEAD_ITERS * HEAD_FRAMES):.4f} ms per frame "
           f"untraced (host clock) [{card}]")
-    return {"k1": {"launches_bench_headline": n_head,
-                   "launches_bench_latency_b1": n_b[1],
-                   "launches_bench_latency_b8": n_b[8],
+    return {"k1": {"host_launches_bench_headline": host["headline"],
+                   "device_launches_bench_headline": dev_n["headline"],
+                   "host_launches_bench_latency_b1": host[1],
+                   "device_launches_bench_latency_b1": dev_n[1],
+                   "host_launches_bench_latency_b8": host[8],
+                   "device_launches_bench_latency_b8": dev_n[8],
                    "max_abs_err_bench": errs[HEAD_BATCH],
                    "max_abs_err_bench_latency_b1": errs[1],
                    "max_abs_err_bench_latency_b8": errs[8]},
-            "plc": n_plc}
+            "plc": {"host_launches_bench_plc": n_plc,
+                    "device_launches_bench_plc": plc_dev}}
 
 
 def graft_phase(dev, card, zero_counts, edge) -> dict:
@@ -2641,6 +2818,353 @@ def graft_phase(dev, card, zero_counts, edge) -> dict:
           f" s [{card}]")
     return {"launches_graft": launches, "replays_graft": replays,
             "max_abs_err_graft": max(errs), "graft_ms": times}
+
+
+def _same_tree(a, b) -> bool:
+    """Two results of an entry point are bit-identical: every tensor leaf
+    of the trees equal, and the trees of one structure."""
+    import torch
+    from lpcnet_tpu_torch.utils import graphs
+    la, sa = graphs.flatten(a)
+    lb, sb = graphs.flatten(b)
+    return sa == sb and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        for x, y in zip(la, lb))
+
+
+def _median_call_ms(fn, reps: int) -> float:
+    """Median of reps calls of fn, each by the host clock and synchronised
+    before and after."""
+    import torch
+    ts = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts))
+
+
+def graph_cases(dev, params, plc_params, dred):
+    """The graphed entry points of phase 4l, each as (name, what, B, plain,
+    make), plain for an entry point that runs the plain loops: make()
+    gives (the object, its jit, the public method, the initial state or
+    None for a stateless call, the arguments of each call after the state,
+    the sample-kernel launches of one call by counter)."""
+    import torch
+    from lpcnet_tpu_torch import plc
+    from lpcnet_tpu_torch.dred import DREDCodec
+    from lpcnet_tpu_torch.vocoder import Synthesizer
+    n, T = GRAPH_CALLS, GRAPH_FRAMES
+    cases = []
+
+    def split(x, frames, per_frame):
+        """x (B, n * frames * per_frame, ...) as n per-call pieces."""
+        w = frames * per_frame
+        return [x[:, i * w:(i + 1) * w] for i in range(len(x[0]) // w)]
+
+    for B in GRAPH_BATCHES:
+        feats = tiled_features(B, n * T)
+        for variant in ("flat", "base", "fuse", "opt"):
+            for tables in ("f32", "bf16"):
+                def make(B=B, variant=variant, tables=tables, feats=feats):
+                    v = Synthesizer(params=params, device=dev,
+                                    variant=variant, tables=tables)
+                    counter = variant + ("_bf16" if tables == "bf16" else "")
+                    return (v, v._synth, v.synthesize,
+                            v.reset(B, per_stream_rng=True),
+                            [(f,) for f in split(feats, T, 1)], {counter: T})
+                cases.append(("Synthesizer.synthesize",
+                              f"{variant} {tables}", B, False, make))
+
+        def make_teacher(B=B, feats=feats):
+            v = Synthesizer(params=params, device=dev)
+            target = tiled_speech(B, n * T)
+            preload = np.random.RandomState(9).randint(0, FS + 1, (B, n * T))
+            args = list(zip(split(feats, T, 1), split(target, T, FS),
+                            split(preload, T, 1)))
+            return (v, v._synth_teacher, v.synthesize_teacher,
+                    v.reset(B, per_stream_rng=True), args, {"tf_flat": T})
+        cases.append(("Synthesizer.synthesize_teacher", "preload", B,
+                      False, make_teacher))
+
+        def make_streaming(B=B, feats=feats):
+            v = Synthesizer(params=params, device=dev)
+            return (v, v._synth_streaming, v.synthesize_streaming,
+                    v.reset_streaming(B, True),
+                    [(f,) for f in split(feats, T, 1)], {"tf_flat": T})
+        cases.append(("Synthesizer.synthesize_streaming", "K3", B, False,
+                      make_streaming))
+
+        speech = tiled_speech(B, GRAPH_STEPS)
+        lost = loss_flags(B, GRAPH_STEPS)
+        if B == 1:           # one stream: a good, a lost, a blend frame
+            lost[0] = [False, True, False, False][:GRAPH_STEPS]
+        for cls, per_step in (
+                (plc.PLCEngine, {"tf_flat": 1}),
+                (plc.NonCausalPLCEngine, {"tf_flat": 4, "teacher": 3}),
+                (plc.StrictCausalPLCEngine, {"tf_flat": 8})):
+            def make_plc(B=B, cls=cls, per_step=per_step, speech=speech,
+                         lost=lost):
+                eng = cls(params, plc_params, device=dev)
+                args = [(speech[:, t * FS:(t + 1) * FS], lost[:, t])
+                        for t in range(GRAPH_STEPS)]
+                return (eng, eng._step, eng.step, eng.init_state(B), args,
+                        per_step)
+            cases.append((cls.__name__ + ".step", "", B, False, make_plc))
+
+        dparams, dcfg = dred
+        dfeats = tiled_features(B, n * DRED_GRAPH_FRAMES)[..., :20]
+
+        def make_encode(B=B, dfeats=dfeats):
+            dc = DREDCodec(dparams, dcfg, device=dev)
+            return (dc, dc._encode, dc.encode, None,
+                    [(f,) for f in split(dfeats, DRED_GRAPH_FRAMES, 1)], {})
+        cases.append(("DREDCodec.encode", "", B, False, make_encode))
+
+        def make_decode(B=B, dfeats=dfeats):
+            dc = DREDCodec(dparams, dcfg, device=dev)
+            args = []
+            with torch.no_grad():
+                for f in split(dfeats, DRED_GRAPH_FRAMES, 1):
+                    zd, sd = dc._encode_impl(torch.as_tensor(f, device=dev))
+                    sym, qid = dc.quantize_payload(zd)
+                    args.append((sym, qid, sd[:, 0]))
+            return dc, dc._decode, dc.decode, None, args, {}
+        cases.append(("DREDCodec.decode", "", B, False, make_decode))
+
+    # the dotprod plain loops on the card (seconds per eager frame): B=1,
+    # GRAPH_PLAIN_CALLS calls of 1 frame
+    feats1 = tiled_features(1, GRAPH_PLAIN_CALLS)
+    for name in ("Synthesizer.synthesize", "Synthesizer.synthesize_streaming"):
+        def make_plain(name=name):
+            v = Synthesizer(params=params, device=dev, backend="dotprod")
+            streaming = "streaming" in name
+            step = v._synth_streaming if streaming else v._synth
+            state = (v.reset_streaming(1, True) if streaming
+                     else v.reset(1, per_stream_rng=True))
+            method = getattr(v, name.split(".")[1])
+            return (v, step, method, state,
+                    [(f,) for f in split(feats1, 1, 1)], {})
+        cases.append((name, "dotprod", 1, True, make_plain))
+    return cases
+
+
+def graphs_phase(dev, card, params, plc_params, zero_counts) -> dict:
+    """Phase 4l: every graphed entry point (utils/graphs.jit) at B=1 (plan
+    L) and B=1024 (plan T), the dotprod plain loops at B=1 x 1 frame: a
+    chain of calls that carries the state under graphs.disabled() (eager),
+    then the same chain graphed, pcm and every state leaf bit-identical;
+    the first graphed call runs eagerly, the second captures (its time is
+    the capture call's), it and the later ones replay. Counts set to 0
+    just before the graphed chain and read after it: every launch is the
+    eager call's or the capture's, CAPTURE_CALL x one call's, under the
+    batch's plan; the replays launch nothing from the host. Then eager and
+    replayed ms per call (host clock, synchronised, the median of
+    GRAPH_REPS calls; for the plain loops, which take seconds per eager
+    call, the eager chain's calls and GRAPH_PLAIN_REPS replays), the
+    capture alone (CompiledStep.capture_s) and the peak memory. Then
+    synthesize_temperature, which stays eager: one call, and what a
+    capture of it would take (compile_step on its body). Then one-shot
+    callers: a fresh synthesizer's first, second and third call at B=1 x
+    ONE_SHOT_FRAMES frames beside one eager call. Then one frame per call
+    at B=1 and B=8, eager and replayed. Raises RuntimeError on a failed
+    check; returns the lines' numbers."""
+    import torch
+    from lpcnet_tpu_torch import convert
+    from lpcnet_tpu_torch.kernels import sample_cuda
+    from lpcnet_tpu_torch.utils import graphs
+    from lpcnet_tpu_torch.vocoder import Synthesizer
+    t_phase = time.perf_counter()
+    dred = convert.load_dred(device=dev)
+    w = graphs.CAPTURE_CALL
+    out = {}
+
+    def chain(method, state, calls, ms=None):
+        """The calls in order, each on the state the last one left (state
+        None: a stateless entry point); ms: a list that gets each call's ms
+        (host clock, synchronised)."""
+        outs = []
+        for a in calls:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(method(*a) if state is None else method(state, *a))
+            state = None if state is None else outs[-1][0]
+            torch.cuda.synchronize()
+            if ms is not None:
+                ms.append((time.perf_counter() - t0) * 1e3)
+        return outs
+
+    for name, what, B, plain, make in graph_cases(dev, params, plc_params,
+                                                  dred):
+        obj, step, method, state0, args, per_call = make()
+        tag = f"{name}{' ' + what if what else ''} B={B}"
+        chain_ms = []
+        zero_counts()
+        with graphs.disabled():
+            eager = chain(method, state0, args, chain_ms)
+        if graphs.captures or graphs.replays:
+            raise RuntimeError(f"graphs: {tag}: captured while disabled")
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        graphed_ms = []
+        graphed = chain(method, state0, args[:w], graphed_ms)
+        graphed += chain(method, None if state0 is None else graphed[-1][0],
+                         args[w:])
+        peak = torch.cuda.max_memory_allocated()
+        counts = {k: c for k, c in sample_cuda.launches.items() if c}
+        by_plan = dict(sample_cuda.plan_launches)
+        same = len(eager) == len(graphed) and all(
+            _same_tree(e, g) for e, g in zip(eager, graphed))
+        want = {k: w * c for k, c in per_call.items()}
+        plan = "L" if B <= sample_cuda.TILE * sample_cuda.max_clusters(dev) \
+            else "T"
+        n_want = sum(want.values())
+        # the plain loops take seconds per eager call: their eager ms is the
+        # median of the eager chain's calls
+        reps = GRAPH_PLAIN_REPS if plain else GRAPH_REPS
+        call0 = ((lambda: method(*args[0])) if state0 is None
+                 else (lambda: method(state0, *args[0])))
+        if plain:
+            eager_ms = float(np.median(chain_ms))
+        else:
+            with graphs.disabled():
+                eager_ms = _median_call_ms(call0, reps)
+        replays0 = graphs.replays[name]
+        replay_ms = _median_call_ms(call0, reps)
+        ok = (same and dict(graphs.captures) == {name: 1} and counts == want
+              and by_plan[plan] == n_want and sum(by_plan.values()) == n_want
+              and replays0 == len(args) - (w - 1)
+              and dict(graphs.replays) == {name: replays0 + reps})
+        capture_only = next(iter(step.steps.values())).capture_s
+        line = {"first_call_ms": graphed_ms[0],
+                "capture_call_s": graphed_ms[w - 1] / 1e3,
+                "capture_s": capture_only, "eager_ms": eager_ms,
+                "replay_ms": replay_ms, "captures": graphs.captures[name],
+                "replays": graphs.replays[name], "mem_gb": mem0 / 2 ** 30,
+                "peak_gb": peak / 2 ** 30, "same": same}
+        out[(name, what, B)] = line
+        limit = ""
+        if name == "PLCEngine.step" and B == 1:
+            limit = (f"; limit {PLC_STEP_LIMIT_MS} ms per step: "
+                     f"{'met' if replay_ms < PLC_STEP_LIMIT_MS else 'missed'}")
+        print(f"[graphs] {tag} x {len(args)} calls"
+              f"{'' if state0 is None else ' carrying the state'}: "
+              f"bit-identical to the eager chain (pcm and every state leaf) "
+              f"{same}; the first call (eager) {graphed_ms[0]:.4f} ms, the "
+              f"capturing call {graphed_ms[w - 1] / 1e3:.3f} s (the capture "
+              f"{capture_only:.3f} s and a replay); eager {eager_ms:.4f} ms, "
+              f"replay {replay_ms:.4f} ms per call "
+              f"({eager_ms / replay_ms:.2f}x; host clock, synchronised, "
+              f"median of {len(chain_ms) if plain else reps}"
+              f"{' eager' if plain else ''} calls"
+              f"{f', {reps} replays' if plain else ''}){limit}; captures "
+              f"{graphs.captures[name]}, replays {graphs.replays[name]}; "
+              f"launches from the host {counts} (by plan {by_plan}; "
+              f"expected {want} under plan {plan}); memory "
+              f"{mem0 / 2 ** 30:.3f} GiB before the graphed chain, peak "
+              f"{peak / 2 ** 30:.3f} GiB [{card}]")
+        if not ok:
+            raise RuntimeError(f"graphs: {tag}: the graphed chain is not the "
+                               f"eager one, or its captures, replays or "
+                               f"launches are not as expected")
+        del obj, step, method, eager, graphed
+
+    # synthesize_temperature stays eager: one call, then what a capture of
+    # its body would take, and that replay against the eager call
+    name = "Synthesizer.synthesize_temperature"
+    v = Synthesizer(params=params, device=dev)
+    f = torch.as_tensor(tiled_features(1, 1), device=dev)
+    st = v.reset(1, per_stream_rng=True)
+    zero_counts()
+    ms = []
+    (st_e, pcm_e), = chain(v.synthesize_temperature, st, [(f,)], ms)
+    eager_only = not graphs.captures and not graphs.replays
+    t0 = time.perf_counter()
+    cs = graphs.compile_step(v._synthesize_temperature, (st, f), name,
+                             warmup=0)
+    capture_s = time.perf_counter() - t0
+    replay_ms = []
+    (st_r, pcm_r), = chain(cs, None, [(st, f)], replay_ms)
+    same = _same_tree((st_e, pcm_e), (st_r, pcm_r))
+    out[(name, "eager", 1)] = {"eager_ms": ms[0], "capture_s": capture_s,
+                               "replay_ms": replay_ms[0], "same": same}
+    print(f"[graphs] {name} B=1 x 1 frame: runs eagerly (no graph made or "
+          f"replayed {eager_only}), {ms[0]:.1f} ms; a capture of its body "
+          f"would take {capture_s:.3f} s (instantiation included), its "
+          f"replay {replay_ms[0]:.1f} ms, bit-identical to the eager call "
+          f"{same} [{card}]")
+    if not (eager_only and same):
+        raise RuntimeError(f"graphs: {name}: made a graph, or its capture "
+                           f"disagrees with the eager call")
+    del v, cs
+
+    # one-shot callers: a CLI chunk (cli.CHUNK_FRAMES) and eval_lpcnet's
+    # one call on the golden features
+    whole = np.fromfile(FEATS, np.float32).reshape(1, -1, 36)
+    name = "Synthesizer.synthesize"
+    for T in ONE_SHOT_FRAMES:
+        f = torch.as_tensor(whole[:, :T], device=dev)
+        v = Synthesizer(params=params, device=dev)
+        st = v.reset(1)
+        with graphs.disabled():
+            eager_ms = []
+            (_, pcm_e), = chain(lambda f: v.synthesize(st, f), None, [(f,)],
+                                eager_ms)
+        v = Synthesizer(params=params, device=dev)
+        zero_counts()
+        ms = []
+        # each call on the same fresh state, as separate one-shot calls
+        outs = chain(lambda f: v.synthesize(st, f), None, [(f,)] * 3, ms)
+        got = (dict(graphs.captures), dict(graphs.replays))
+        same = all(torch.equal(o[1], pcm_e) for o in outs)
+        out[("one-shot", "", T)] = {"eager_ms": eager_ms[0], "calls_ms": ms,
+                                    "same": same}
+        print(f"[graphs] one-shot {name} B=1 x {T} frames (a fresh "
+              f"synthesizer, one eager call beside its first three calls "
+              f"of one shape): eager {eager_ms[0]:.2f} ms; graphed: the "
+              f"first call {ms[0]:.2f} ms (eager), the second "
+              f"{ms[1]:.2f} ms (the capture and a replay), the third "
+              f"{ms[2]:.2f} ms (a replay); a capture in the first call "
+              f"would have made it ~{ms[0] + ms[1]:.2f} ms; (captures, "
+              f"replays) {got}; every call's pcm equal to the eager call's "
+              f"{same} [{card}]")
+        if not (same and got == ({name: 1}, {name: 2})):
+            raise RuntimeError(f"graphs: one-shot B=1 x {T}: the calls "
+                               f"disagree or captured other than once")
+        del v
+    # one frame per call, the bench's latency shape, eager and replayed in
+    # this run
+    for B in (1, 8):
+        v = Synthesizer(params=params, device=dev)
+        f = torch.as_tensor(tiled_features(B, 1), device=dev)
+        st = v.reset(B, per_stream_rng=True)
+        with graphs.disabled():
+            eager_ms = _median_call_ms(lambda: v.synthesize(st, f),
+                                       LATENCY_REPS)
+            _, pcm_e = v.synthesize(st, f)
+        for _ in range(w):
+            v.synthesize(st, f)
+        replay_ms = _median_call_ms(lambda: v.synthesize(st, f),
+                                    LATENCY_REPS)
+        same = torch.equal(v.synthesize(st, f)[1], pcm_e)
+        out[("one frame", "", B)] = {"eager_ms": eager_ms,
+                                     "replay_ms": replay_ms, "same": same}
+        print(f"[graphs] one frame per call {name} B={B}: eager "
+              f"{eager_ms:.4f} ms, replay {replay_ms:.4f} ms (host clock, "
+              f"synchronised, median of {LATENCY_REPS} calls each; limit "
+              f"10 ms: {'met' if replay_ms < 10 else 'missed'} graphed, "
+              f"{'met' if eager_ms < 10 else 'missed'} eager); the replay's "
+              f"pcm equal to the eager call's {same} [{card}]")
+        if not same:
+            raise RuntimeError(f"graphs: one frame B={B}: the replay "
+                               f"disagrees with the eager call")
+        del v
+    print(f"[graphs] {len(out)} lines in "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return out
 
 
 def eval_phase(dev, card, zero_counts) -> dict:

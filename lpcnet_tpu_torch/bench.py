@@ -48,6 +48,7 @@ import torch
 
 from .constants import FRAME_SIZE, NB_BANDS, NB_TOTAL_FEATURES
 from .device import resolve_device
+from .utils import graphs
 
 GOLDEN_SPEECH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              os.pardir, "tests", "golden", "speech.s16")
@@ -72,10 +73,18 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _warmup_calls(device: torch.device) -> int:
+    """Calls before the clock starts: on the card graphs.CAPTURE_CALL, so
+    that a graphed entry point's eager call and capture are paid before
+    it (as bench.py's warm-up pays jax.jit's compile), one on the CPU."""
+    return graphs.CAPTURE_CALL if device.type == "cuda" else 1
+
+
 def _timeit(fn, iters: int, device: torch.device) -> float:
-    """Seconds per call of fn after one warm-up call, the card synchronised
-    before the clock starts and after the last call."""
-    fn()
+    """Seconds per call of fn after _warmup_calls warm-up calls, the card
+    synchronised before the clock starts and after the last call."""
+    for _ in range(_warmup_calls(device)):
+        fn()
     _sync(device)
     t0 = time.perf_counter()
     for _ in range(iters):
@@ -234,12 +243,13 @@ def bench_train(batch=64, iters=5, device=None):
 def _timed_synthesis(synth_fn, state, feats, iters: int,
                      device: torch.device, profile_dir: Optional[str]
                      ) -> float:
-    """One warm-up call, then `iters` calls of synth_fn traced into
-    profile_dir (on the card its activity alone; nothing when profile_dir
-    is None). Returns their wall seconds, the card synchronised at both
-    ends."""
+    """_warmup_calls warm-up calls, then `iters` calls of synth_fn traced
+    into profile_dir (on the card its activity alone; nothing when
+    profile_dir is None). Returns their wall seconds, the card
+    synchronised at both ends."""
     from .utils import profiling
-    state, _ = synth_fn(state, feats)
+    for _ in range(_warmup_calls(device)):
+        state, _ = synth_fn(state, feats)
     _sync(device)
     with profiling.trace(profile_dir, cpu=device.type != "cuda"):
         t0 = time.perf_counter()
@@ -280,8 +290,8 @@ def synthesis_rank(rank: int, world: int, device, batch: int, frames: int,
 def bench_synthesis(device=None):
     """The headline: Synthesizer(LPCNetConfig()).synthesize at
     LPCNET_BENCH_BATCH streams x LPCNET_BENCH_FRAMES frames per call,
-    LPCNET_BENCH_ITERS timed calls after a warm-up one (on the card, the
-    flat frame kernel K1 once per frame). Returns (result line, RT factor,
+    LPCNET_BENCH_ITERS timed calls after the warm-up ones (on the card,
+    the flat frame kernel K1 once per frame, replayed as a CUDA graph). Returns (result line, RT factor,
     the trace's utilization or None)."""
     from .models import lpcnet
     from .utils import profiling
@@ -415,7 +425,8 @@ def bench_latency(iters=200, device=None):
         feats[..., 19] = 0.5
         feats = torch.as_tensor(feats, device=dev)
         state = voc.reset(batch, per_stream_rng=True)
-        state, _ = voc.synthesize(state, feats)       # warm-up
+        for _ in range(_warmup_calls(dev)):
+            state, _ = voc.synthesize(state, feats)
         _sync(dev)
         t0 = time.perf_counter()
         for _ in range(iters):

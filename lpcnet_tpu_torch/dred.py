@@ -22,6 +22,7 @@ import torch
 from . import convert
 from .device import resolve_device
 from .models import rdovae as rv
+from .utils import graphs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,16 +55,24 @@ class DREDCodec:
         self.dred = dred_cfg
         # the payload's quant ids, newest first, uploaded once
         self.qid = torch.as_tensor(quant_id_ramp(dred_cfg), device=self.device)
+        # jit-compiled as the JAX package's are (lpcnet_tpu/dred.py:54-55):
+        # on the card the first call of each argument signature captures a
+        # CUDA graph and every call replays it (utils/graphs.py)
+        self._encode = graphs.jit(self._encode_impl, "DREDCodec.encode")
+        self._decode = graphs.jit(self._decode_impl, "DREDCodec.decode")
 
     def _f32(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
-    @torch.no_grad()
     def encode(self, feats):
         """feats: (B, T, 20), T % 4 == 0. Returns the per-dframe latents
         zd (B, T/4, 80) and the PVQ-quantized resume states sd
         (B, T/4, 24)."""
-        z, state = rv.encode(self.params, self._f32(feats), self.cfg)
+        return self._encode(self._f32(feats))
+
+    @torch.no_grad()
+    def _encode_impl(self, feats):
+        z, state = rv.encode(self.params, feats, self.cfg)
         # dframe rate: every second pair step, the one ending the dframe
         return z[:, 1::2], rv.pvq_quantize(state[:, 1::2], self.cfg.pvq_k)
 
@@ -77,18 +86,20 @@ class DREDCodec:
         dze = rv.apply_dead_zone(tail * qp["scale"], qp["dead_zone"])
         return torch.round(dze).to(torch.int32), self.qid
 
-    @torch.no_grad()
     def decode(self, sym, qid, state):
         """Features from a redundancy payload. sym: (B, n, 80) symbols,
         newest first; qid: (n,) quant ids; state: (B, 24) resume state of
         the oldest dframe. Returns (B, n*4, 20) features, oldest first
         (DRED_rdovae_decode_all, src/dred_rdovae.c:38-52)."""
-        qp = rv.quant_params(self.params,
-                             torch.as_tensor(qid, device=self.device),
-                             self.cfg)
-        z = self._f32(sym) / qp["scale"]
-        return rv.decode(self.params, torch.flip(z, [1]), self._f32(state),
-                         self.cfg)
+        return self._decode(self._f32(sym),
+                            torch.as_tensor(qid, device=self.device),
+                            self._f32(state))
+
+    @torch.no_grad()
+    def _decode_impl(self, sym, qid, state):
+        qp = rv.quant_params(self.params, qid, self.cfg)
+        return rv.decode(self.params, torch.flip(sym / qp["scale"], [1]),
+                         state, self.cfg)
 
 
 @torch.no_grad()

@@ -28,6 +28,7 @@ from .constants import (FRAME_SIZE, LPC_ORDER, NB_BANDS, OVERLAP_SIZE,
                         PITCH_MAX_PERIOD, PITCH_MIN_PERIOD, PREEMPHASIS,
                         TRAINING_OFFSET, WINDOW_SIZE)
 from .ops import dsp
+from .ops.tables import device_constant
 
 _NSTATES = PITCH_MAX_PERIOD - PITCH_MIN_PERIOD          # 224
 _HALF = FRAME_SIZE // 2                                  # 80
@@ -135,7 +136,7 @@ def pitch_xcorr(exc_stream: torch.Tensor
     lo = torch.nn.functional.pad(c[..., :PITCH_MAX_PERIOD - 1], (1, 0))
     xc = 2.0 * corr / (1.0 + ener0[..., None] + (hi - lo))
     # 3x sinc-interpolated max (lpcnet_enc.c:553-570), lags 4..251
-    k = torch.as_tensor(_INTERP, device=xc.device)
+    k = device_constant(_INTERP, xc.device)
     pad = torch.nn.functional.pad(xc, (3, 3))
     taps = pad.unfold(-1, 7, 1)                            # (B, nsub, 256, 7)
     val1 = (taps * k.flip(0)).sum(-1)

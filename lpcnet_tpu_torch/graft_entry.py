@@ -6,8 +6,9 @@ multi-card dry run (the port of the JAX package's __graft_entry__.py).
 entry() gives (fn, example_args): one 10-ms frame of batched synthesis at
 LPCNetConfig() for 32 streams, frame_conditions then 160 sample steps (the
 frame kernel on the card, the plain loop on the CPU). compile_step(fn,
-args) is the counterpart of jax.jit(fn): one call of fn captured as a CUDA
-graph, which replays the whole step with no host dispatch inside it.
+args) (utils/graphs.py) is the counterpart of jax.jit(fn): one call of fn
+captured as a CUDA graph, which replays the whole step with no host
+dispatch inside it.
 dryrun_multichip(n) runs the data-parallel training step and stream-
 parallel synthesis over n ranks (parallel/mesh.py).
 """
@@ -20,10 +21,12 @@ from .constants import NB_TOTAL_FEATURES
 from .kernels import sample_cuda
 from .models import lpcnet
 from .parallel import mesh
+# compile_step lives in utils/graphs.py, beside the entry points' jit
+from .utils.graphs import (WARMUP_CALLS, CompiledStep,  # noqa: F401
+                           compile_step)
 from .vocoder import Synthesizer
 
 State = Dict[str, torch.Tensor]
-WARMUP_CALLS = 2     # eager calls of fn before its capture
 
 
 def entry(device=None, batch: int = 32,
@@ -47,65 +50,6 @@ def entry(device=None, batch: int = 32,
                                              voc.cfg, variant=voc.variant)
 
     return fn, (state, feats)
-
-
-class CompiledStep:
-    """A captured call of fn: step(state, feats) copies its arguments into
-    the graph's static inputs, replays the graph and returns clones of its
-    outputs. `replays` counts the replays; the kernels' own launch counters
-    ticked in compile_step's warm-up and capture, and never in a replay."""
-
-    def __init__(self, graph: torch.cuda.CUDAGraph, state: State,
-                 feats: torch.Tensor, out: Tuple[State, torch.Tensor]):
-        self.graph, self.state, self.feats, self.out = graph, state, feats, out
-        self.replays = 0
-
-    def __call__(self, state: State, feats: torch.Tensor
-                 ) -> Tuple[State, torch.Tensor]:
-        if state.keys() != self.state.keys() or any(
-                state[k].shape != v.shape for k, v in self.state.items()) \
-                or feats.shape != self.feats.shape:
-            raise ValueError("a compiled step takes arguments of the shapes "
-                             "it was captured with")
-        for k, v in self.state.items():
-            v.copy_(state[k])
-        self.feats.copy_(feats)
-        self.graph.replay()
-        self.replays += 1
-        new, pcm = self.out
-        return {k: v.clone() for k, v in new.items()}, pcm.clone()
-
-
-def compile_step(fn: Callable, example_args: Tuple[State, torch.Tensor]
-                 ) -> CompiledStep:
-    """The counterpart of jax.jit(fn) on the card: fn warmed up on a side
-    stream (cuBLAS handles, cuFFT plans, the kernels' libraries and
-    per-device constants exist before the capture), then one call of fn on
-    static copies of example_args captured in a torch.cuda.CUDAGraph.
-    Raises RuntimeError on a device that is not CUDA (there are no graphs
-    there) and when the capture fails; it never falls back to eager
-    calls."""
-    state, feats = example_args
-    dev = feats.device
-    if dev.type != "cuda":
-        raise RuntimeError(f"compile_step captures a CUDA graph; the "
-                           f"arguments are on {dev}")
-    static_state = {k: v.clone() for k, v in state.items()}
-    static_feats = feats.clone()
-    side = torch.cuda.Stream(dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(side):
-        for _ in range(WARMUP_CALLS):
-            fn(static_state, static_feats)
-    torch.cuda.current_stream(dev).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    try:
-        with torch.cuda.graph(graph):
-            out = fn(static_state, static_feats)
-    except Exception as e:
-        raise RuntimeError(f"compile_step: the step could not be captured "
-                           f"as a CUDA graph: {e}") from e
-    return CompiledStep(graph, static_state, static_feats, out)
 
 
 def dryrun_multichip(n: int, device=None) -> Dict[str, Any]:

@@ -40,7 +40,8 @@ import torch
 from ..constants import DUAL_FC_OUT, FRAME_SIZE, GRU_A_SIZE, GRU_B_SIZE, \
     LPC_ORDER
 from ..ops.mulaw import ULAW2LIN_TABLE
-from ..ops.tables import SAMPLING_LOGIT_TABLE
+from ..ops.tables import SAMPLING_LOGIT_TABLE, device_constant
+from ..utils import graphs
 from . import _build, sample_scan
 
 VARIANTS = ("flat", "base")                      # synth_samples (K3)
@@ -189,11 +190,14 @@ def max_clusters(device: torch.device) -> int:
 def _plan_forced(device: torch.device, plan: str):
     """For the card tests and chip_smoke.py: every kernel launch inside
     takes `plan`, through launch_plan's input, the cluster count (the
-    card's own for L, 0 for T)."""
+    card's own for L, 0 for T). The entry points run eagerly inside
+    (graphs.disabled()): a graph captured under another plan would replay
+    it."""
     index, real = _index(device), max_clusters(device)
     _max_clusters[index] = real if plan == "L" else 0
     try:
-        yield
+        with graphs.disabled():
+            yield
     finally:
         _max_clusters[index] = real
 
@@ -213,8 +217,8 @@ def _logit_tbl(device: torch.device) -> torch.Tensor:
     each device."""
     if device not in _logit_tbls:
         _logit_tbls[device] = torch.stack(
-            [torch.as_tensor(SAMPLING_LOGIT_TABLE),
-             torch.as_tensor(ULAW2LIN_TABLE)]).to(device)
+            [device_constant(SAMPLING_LOGIT_TABLE, device),
+             device_constant(ULAW2LIN_TABLE, device)])
     return _logit_tbls[device]
 
 

@@ -47,7 +47,7 @@ from ..constants import LPC_ORDER
 from ..models import layers
 from ..ops import activations, kiss99
 from ..ops.mulaw import lin2ulaw, ulaw2lin
-from ..ops.tables import SAMPLING_LOGIT_TABLE
+from ..ops.tables import SAMPLING_LOGIT_TABLE, device_constant
 from ..training.losses import tree_to_pdf
 
 # The flat scorer's static tables (sample_pallas.py:99-127). The 8-bit tree
@@ -119,10 +119,20 @@ def init_state(batch: int, cfg, rng_seed: Optional[np.ndarray] = None,
     }
 
 
+def reset_like(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """init_state's fresh state for the streams of `state`, with `state`'s
+    RNG kept: made on its device from its leaves, with no host seed to
+    upload (a CUDA graph can capture it)."""
+    new = {k: torch.zeros_like(v) for k, v in state.items()}
+    new["last_exc"] = torch.full_like(state["last_exc"], 128)  # lin2ulaw(0)
+    new["rng"] = state["rng"]
+    return new
+
+
 def _thresholds(rng: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Two KISS99 draws -> (B, 8) sampling thresholds (bytes of the draws,
     low byte first, through SAMPLING_LOGIT_TABLE) and the new rng."""
-    tbl = torch.as_tensor(SAMPLING_LOGIT_TABLE, device=rng.device)
+    tbl = device_constant(SAMPLING_LOGIT_TABLE, rng.device)
     rng, r1 = kiss99.kiss99_next(rng)
     rng, r2 = kiss99.kiss99_next(rng)
     byts = [(r >> (8 * k)) & 0xFF for r in (r1, r2) for k in range(4)]
@@ -155,10 +165,10 @@ def _sample_flat(logits: torch.Tensor, rng: torch.Tensor):
     operands are small integers, so the product is exact."""
     thr, rng = _thresholds(rng)
     dev = logits.device
-    thr_cols = thr[:, torch.as_tensor(NODE_LEVEL, device=dev)]
+    thr_cols = thr[:, device_constant(NODE_LEVEL, dev)]
     cmp = (thr_cols < logits).to(torch.float32)
-    dots = cmp @ torch.as_tensor(FLAT_SCORE_W, device=dev)
-    tgt = torch.as_tensor(FLAT_TARGET_LEAF, device=dev)
+    dots = cmp @ device_constant(FLAT_SCORE_W, dev)
+    tgt = device_constant(FLAT_TARGET_LEAF, dev)
     exc = torch.where(dots == tgt[0], tgt[1], 0.0).sum(-1)
     return exc.to(torch.int32), rng
 

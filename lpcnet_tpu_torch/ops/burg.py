@@ -19,8 +19,11 @@ import torch
 
 from ..constants import LPC_ORDER, PREEMPHASIS, WINDOW_SIZE
 from . import dsp
+from .tables import device_constant
 
 _COND_FAC = 1e-5  # FIND_LPC_COND_FAC (burg.c:40)
+# the inverse filter's bandwidth expansion 0.995^(i+1), i < LPC_ORDER
+_BW = 0.995 ** np.arange(1, LPC_ORDER + 1, dtype=np.float32)
 
 
 def _pad_tail(u: torch.Tensor, width: int) -> torch.Tensor:
@@ -143,9 +146,7 @@ def burg_cepstrum(pcm: torch.Tensor) -> torch.Tensor:
     lpc, g = burg_analysis(xin, 1e-3, order)
     g = g / (L - 2 * (order - 1))
     # inverse filter spectrum: impulse [1, -lpc*0.995^(i+1), 0...]
-    bw = torch.as_tensor(
-        0.995 ** np.arange(1, order + 1, dtype=np.float32),
-        device=pcm.device)
+    bw = device_constant(_BW, pcm.device)
     imp = torch.nn.functional.pad(
         torch.cat([torch.ones_like(lpc[..., :1]), -lpc * bw], dim=-1),
         (0, WINDOW_SIZE - order - 1))

@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from ..constants import LOG256
+from .tables import device_constant
 
 
 def _c_ulaw2lin_table() -> np.ndarray:
@@ -63,5 +64,5 @@ def lin2ulaw(x: torch.Tensor) -> torch.Tensor:
 def ulaw2lin(u: torch.Tensor) -> torch.Tensor:
     """Integer mu-law index -> linear float through ULAW2LIN_TABLE (exact
     with the C's double-exp evaluation)."""
-    tbl = torch.as_tensor(ULAW2LIN_TABLE, device=u.device)
+    tbl = device_constant(ULAW2LIN_TABLE, u.device)
     return tbl[torch.clamp(u, 0, 255).long()]

@@ -39,6 +39,13 @@ synth_samples calls per step, each with per-stream active counts.
 The feature queue for FEC follows lpcnet_plc_fec_add / get_fec_or_pred /
 fec_rewind (lpcnet_plc.c:111-173). On a CUDA device every synthesis call
 launches a hand-written kernel; device="cpu" runs the plain PyTorch loops.
+
+Each engine's step is jit-compiled as the JAX package's is (lpcnet_tpu/
+plc.py:107, :470, :802): on the card the first call of each argument
+signature captures the step as a CUDA graph and every call replays it
+(utils/graphs.py), and run() replays it once per frame. init_state, fec_add
+and fec_clear run eagerly, as in the JAX package; graphs.disabled() runs
+the step eagerly too, and on the CPU it always runs eagerly.
 """
 import dataclasses
 import math
@@ -56,6 +63,8 @@ from .kernels import sample_cuda, sample_scan
 from .models import lpcnet as lpcnet_model
 from .models import plc as plc_model
 from .ops import burg as burg_ops
+from .ops.tables import device_constant
+from .utils import graphs
 
 # energy attenuation after repeated losses (lpcnet_plc.c:292)
 ATT_TABLE = np.array([0, 0, -.2, -.2, -.4, -.4, -.8, -.8, -1.6, -1.6],
@@ -99,7 +108,7 @@ def _dc_follow(mem: torch.Tensor, x: torch.Tensor,
 
 def _attenuation(loss_count: torch.Tensor) -> torch.Tensor:
     """c0 attenuation after loss_count losses (lpcnet_plc.c:316-319)."""
-    table = torch.as_tensor(ATT_TABLE, device=loss_count.device)
+    table = device_constant(ATT_TABLE, loss_count.device)
     return torch.where(
         loss_count >= 10,
         float(ATT_TABLE[9]) - 2.0 * (loss_count - 9).to(torch.float32),
@@ -148,6 +157,8 @@ class _Engine:
                                                             self.cfg)
         self.options = options
         self.variant = variant
+        self._step = graphs.jit(self._step_impl,
+                                f"{type(self).__name__}.step")
 
     @staticmethod
     def _default_cfg():
@@ -181,16 +192,23 @@ class _Engine:
     def _bool(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.bool, device=self.device)
 
-    @torch.no_grad()
+    def step(self, state, pcm, lost):
+        """Process one 10-ms frame per stream.
+
+        pcm: (B, 160) float (ignored where lost); lost: (B,) bool.
+        Returns (new_state, output pcm (B, 160))."""
+        return self._step(state, self._f32(pcm), self._bool(lost))
+
     def run(self, state, pcm, lost):
         """Process T frames: pcm (B, T*160), lost (B, T) bool -> (state,
-        (B, T*160)). A loop of T step() calls."""
+        (B, T*160)). A loop of T step() calls; each frame's slices are made
+        contiguous, as a graph's inputs are."""
         pcm, lost = self._f32(pcm), self._bool(lost)
         outs = []
         for t in range(lost.shape[1]):
-            state, out = self.step(
-                state, pcm[:, t * FRAME_SIZE:(t + 1) * FRAME_SIZE],
-                lost[:, t])
+            frame = pcm[:, t * FRAME_SIZE:(t + 1) * FRAME_SIZE]
+            state, out = self.step(state, frame.contiguous(),
+                                   lost[:, t].contiguous())
             outs.append(out)
         return state, torch.cat(outs, dim=1)
 
@@ -254,12 +272,7 @@ class PLCEngine(_Engine):
                 "fec_skip": z}
 
     @torch.no_grad()
-    def step(self, state, pcm, lost):
-        """Process one 10-ms frame per stream.
-
-        pcm: (B, 160) float (ignored where lost); lost: (B,) bool.
-        Returns (new_state, output pcm (B, 160))."""
-        pcm, lost = self._f32(pcm), self._bool(lost)
+    def _step_impl(self, state, pcm, lost):
         B = pcm.shape[0]
         cfg = self.cfg
 
@@ -538,12 +551,7 @@ class StrictCausalPLCEngine(_Engine):
 
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def step(self, state, pcm, lost):
-        """Process one 10-ms frame per stream.
-
-        pcm: (B, 160) float (ignored where lost); lost: (B,) bool.
-        Returns (new_state, output pcm (B, 160))."""
-        pcm, lost = self._f32(pcm), self._bool(lost)
+    def _step_impl(self, state, pcm, lost):
         B = pcm.shape[0]
         cfg = self.cfg
         off, FS = TRAINING_OFFSET, FRAME_SIZE
@@ -776,10 +784,9 @@ class NonCausalPLCEngine(_Engine):
                               self.plc_cfg)
 
     @torch.no_grad()
-    def step(self, state, pcm, lost):
+    def _step_impl(self, state, pcm, lost):
         """One 10-ms frame per stream; output is the stream DELAYED by
-        80 samples. pcm: (B, 160) (ignored where lost); lost: (B,) bool."""
-        pcm, lost = self._f32(pcm), self._bool(lost)
+        80 samples."""
         B = pcm.shape[0]
         cfg = self.cfg
         off = TRAINING_OFFSET
@@ -833,9 +840,8 @@ class NonCausalPLCEngine(_Engine):
             delta_b = self._zeros(B)
             pcm_rm = pcm1
         # pass 2: time-reversed synthesis from cleared sample state
-        # (:401-411)
-        synth_clear = sample_scan.init_state(B, cfg, device=self.device)
-        synth_clear["rng"] = synth1["rng"]     # keep the RNG stream moving
+        # (:401-411), the RNG stream kept moving
+        synth_clear = sample_scan.reset_like(synth1)
         _, cond2 = self._cond(fnet1, feats_b)
         synth2, _ = self._synth_samples(synth_clear, cond2, FRAME_SIZE,
                                         target=pcm_rm.flip(-1))

@@ -1,0 +1,261 @@
+"""The counterpart of jax.jit and jax.disable_jit for the port's entry
+points: a call captured as one CUDA graph and replayed.
+
+    step = jit(fn, "Synthesizer.synthesize")
+    out = step(state, feats)        # first call of this signature: eager
+    out = step(state, feats)        # second: capture, then one replay
+    out = step(state, feats)        # later calls: one replay
+    with disabled():                # jax.disable_jit(): fn runs eagerly
+        out = step(state, feats)
+
+The arguments and the outputs of fn are trees of dicts, tuples and lists
+whose leaves are tensors (or other values, which are part of the
+signature and baked into the graph). The signature of a call is the tree
+with each tensor leaf's shape, dtype and device: one graph per signature,
+as JAX compiles one program per abstract signature. A replay copies the
+arguments into the graph's static inputs (contiguous tensors of those
+shapes) and returns clones of its outputs, outputs that are inputs passed
+through included, so that no result aliases the graph's memory.
+
+The first call of a signature runs fn eagerly and is the capture's
+warm-up: a caller that makes one call of a shape (a CLI chunk, an
+evaluation) pays no capture, and a signature is captured only when it
+comes again (the CAPTURE_CALL-th call). On the CPU (no graphs there) and
+inside disabled(), fn runs eagerly. A capture that fails raises
+RuntimeError naming the entry point; nothing falls back to eager calls. A
+kernel's launch counter ticks in the eager calls and the capture, never
+in a replay. The module's `captures` and `replays` count graphs made and
+replayed per entry point's name, as kernels/sample_cuda.py counts
+launches per kernel.
+"""
+import collections
+import contextlib
+import inspect
+import threading
+import time
+import weakref
+from typing import Any, Callable, Dict, Hashable, List, Optional, Tuple
+
+import torch
+
+# compile_step's eager calls of fn on a side stream before its capture: the
+# first call builds whatever the call makes once (cuBLAS handles, cuFFT
+# plans, the kernels' libraries, device constants, the tables' operands),
+# which a capture cannot
+WARMUP_CALLS = 1
+# the call of a signature at which jit captures it; the calls before it run
+# eagerly and are its warm-up, so compile_step warms up no more
+CAPTURE_CALL = 2
+
+# graphs captured and replayed, by the entry point's name
+captures: collections.Counter = collections.Counter()
+replays: collections.Counter = collections.Counter()
+
+_local = threading.local()
+
+
+def is_disabled() -> bool:
+    """Whether this thread is inside disabled()."""
+    return getattr(_local, "disabled", False)
+
+
+@contextlib.contextmanager
+def disabled():
+    """Inside, every jit entry point this thread calls runs its function
+    eagerly (the counterpart of jax.disable_jit()). Nests, and restores on
+    exit; other threads are not affected."""
+    before, _local.disabled = is_disabled(), True
+    try:
+        yield
+    finally:
+        _local.disabled = before
+
+
+def flatten(tree) -> Tuple[List[Any], Hashable]:
+    """(the leaves of tree in order, its structure): dicts (by key, in
+    order), tuples and lists are nodes, anything else a leaf."""
+    leaves: List[Any] = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            return ("dict", tuple(t), tuple(walk(v) for v in t.values()))
+        if isinstance(t, (tuple, list)):
+            return (type(t).__name__, tuple(walk(v) for v in t))
+        leaves.append(t)
+        return "*"
+
+    return leaves, walk(tree)
+
+
+def unflatten(structure: Hashable, leaves: List[Any]):
+    """The tree of `structure` (from flatten) with `leaves` in order."""
+    it = iter(leaves)
+
+    def build(s):
+        if s == "*":
+            return next(it)
+        if s[0] == "dict":
+            return {k: build(v) for k, v in zip(s[1], s[2])}
+        items = [build(v) for v in s[1]]
+        return tuple(items) if s[0] == "tuple" else items
+
+    return build(structure)
+
+
+def _leaf_key(x) -> Hashable:
+    if isinstance(x, torch.Tensor):
+        return ("tensor", tuple(x.shape), x.dtype, x.device)
+    try:
+        hash(x)
+    except TypeError:
+        raise TypeError(f"a jit argument's leaf must be a tensor or "
+                        f"hashable, not {type(x).__name__}") from None
+    return ("static", type(x), x)
+
+
+def signature(args) -> Hashable:
+    """The cache key of a call: the argument tree with each tensor leaf's
+    shape, dtype and device, and each other leaf's value."""
+    leaves, structure = flatten(args)
+    return structure, tuple(_leaf_key(x) for x in leaves)
+
+
+def _clone(x):
+    return x.clone() if isinstance(x, torch.Tensor) else x
+
+
+def _static(x):
+    """A contiguous copy of a tensor leaf: the graph's input."""
+    if not isinstance(x, torch.Tensor):
+        return x
+    return torch.empty(x.shape, dtype=x.dtype, device=x.device).copy_(x)
+
+
+class CompiledStep:
+    """A captured call of fn: step(*args) copies its arguments into the
+    graph's static inputs, replays the graph and returns clones of its
+    outputs. `replays` counts its replays (the module's `replays` those of
+    every graph of its name); `capture_s` is the host time of the capture
+    (the graph's instantiation included, its warm-up calls not)."""
+
+    def __init__(self, graph: torch.cuda.CUDAGraph, args: Tuple, out: Any,
+                 name: str = "compile_step", capture_s: float = 0.0):
+        self.graph, self.args, self.out, self.name = graph, args, out, name
+        self.capture_s = capture_s
+        self.key = signature(args)
+        self._inputs = [x for x in flatten(args)[0]
+                        if isinstance(x, torch.Tensor)]
+        self._out_leaves, self._out_structure = flatten(out)
+        self.replays = 0
+
+    @torch.no_grad()
+    def __call__(self, *args):
+        if signature(args) != self.key:
+            raise ValueError(f"{self.name}: a compiled step takes arguments "
+                             f"of the shapes it was captured with")
+        given = [x for x in flatten(args)[0] if isinstance(x, torch.Tensor)]
+        for static, x in zip(self._inputs, given):
+            static.copy_(x)
+        self.graph.replay()
+        self.replays += 1
+        replays[self.name] += 1
+        return unflatten(self._out_structure,
+                         [_clone(x) for x in self._out_leaves])
+
+
+def _device(args, name: str) -> Optional[torch.device]:
+    """The one device of args' tensor leaves (None without one); raises
+    ValueError when they span more than one."""
+    devices = {x.device for x in flatten(args)[0]
+               if isinstance(x, torch.Tensor)}
+    if len(devices) > 1:
+        raise ValueError(f"{name}: the arguments span more than one device: "
+                         f"{sorted(map(str, devices))}")
+    return next(iter(devices), None)
+
+
+def compile_step(fn: Callable, example_args: Tuple,
+                 name: str = "compile_step", pool=None,
+                 warmup: int = WARMUP_CALLS) -> CompiledStep:
+    """The counterpart of jax.jit(fn) on the card for one signature: fn
+    called `warmup` times on a side stream (cuBLAS handles, cuFFT plans,
+    the kernels' libraries and per-device constants exist before the
+    capture; 0 when the caller has called fn eagerly already), then one
+    call of fn on static copies of example_args captured in a
+    torch.cuda.CUDAGraph (in `pool`, a graph_pool_handle, or a pool of its
+    own). Raises RuntimeError on a device that is not CUDA (there are no
+    graphs there) and when the capture fails; it never falls back to eager
+    calls. An error of fn in a warm-up call propagates as fn raised it."""
+    example_args = tuple(example_args)
+    dev = _device(example_args, name)
+    if dev is None or dev.type != "cuda":
+        raise RuntimeError(f"{name} captures a CUDA graph; the arguments "
+                           f"are on {dev}")
+    static = unflatten(flatten(example_args)[1],
+                       [_static(x) for x in flatten(example_args)[0]])
+    if warmup:
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(warmup):
+                fn(*static)
+        torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    t0 = time.perf_counter()
+    try:
+        with torch.cuda.graph(graph, pool=pool):
+            out = fn(*static)
+    except Exception as e:
+        raise RuntimeError(f"{name}: the call could not be captured as a "
+                           f"CUDA graph: {e}") from e
+    captures[name] += 1
+    return CompiledStep(graph, static, out, name, time.perf_counter() - t0)
+
+
+class jit:
+    """fn behind a per-signature cache of compiled steps (compile_step),
+    which share one memory pool: on CUDA tensors the first call of a
+    signature runs fn eagerly, the CAPTURE_CALL-th captures it, and that
+    call and every later one replay its graph. On the CPU, or inside
+    disabled(), fn runs eagerly and nothing is counted or cached. Raises
+    ValueError for arguments on more than one device. A bound method is
+    held weakly, so that an engine's graphs and pool are freed with the
+    engine (it holds its jit, which would otherwise hold it)."""
+
+    def __init__(self, fn: Callable, name: str):
+        self.fn, self.name = fn, name
+        self.steps: Dict[Hashable, CompiledStep] = {}
+        self._calls: Dict[Hashable, int] = {}
+        self.pool = None
+
+    @property
+    def fn(self) -> Callable:
+        fn = self._fn()
+        if fn is None:
+            raise ReferenceError(f"{self.name}: its object is gone")
+        return fn
+
+    @fn.setter
+    def fn(self, fn: Callable):
+        self._fn = (weakref.WeakMethod(fn) if inspect.ismethod(fn)
+                    else lambda: fn)
+
+    def __call__(self, *args):
+        dev = _device(args, self.name)
+        if is_disabled() or dev is None or dev.type != "cuda":
+            return self.fn(*args)
+        key = signature(args)
+        step = self.steps.get(key)
+        if step is None:
+            n = self._calls.get(key, 0) + 1
+            if n < CAPTURE_CALL:
+                out = self.fn(*args)
+                self._calls[key] = n
+                return out
+            if self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
+            step = compile_step(self.fn, args, self.name, self.pool,
+                                warmup=0)
+            self.steps[key] = step
+            del self._calls[key]
+        return step(*args)

@@ -37,6 +37,7 @@ from .constants import FRAME_SIZE, NB_TOTAL_FEATURES
 from .device import resolve_device
 from .kernels import sample_cuda, sample_scan
 from .plc import StrictCausalPLCEngine
+from .utils import graphs
 from .vocoder import Synthesizer
 
 _COND = ("cond_a", "cond_b", "lpc")
@@ -69,6 +70,12 @@ def _gate(report: Dict[str, Any], name: str, ok: bool, detail: Any):
 class _PlainStrictEngine(StrictCausalPLCEngine):
     """The strict engine with every synthesis call through the plain loop
     on the engine's device: the oracle of the strict_plc_step gate."""
+
+    def step(self, state, pcm, lost):
+        # eager: the oracle of the kernel engine's graphed step, not an
+        # entry point (a graph of its plain sample loops is not needed)
+        with graphs.disabled():
+            return super().step(state, pcm, lost)
 
     def _synth_samples(self, synth_state, cond, nsamples, **kw):
         return sample_scan.synth_samples(

@@ -17,6 +17,16 @@ through the emulation of the reference's int8 DOT_PROD arithmetic
 Synthesizer(tables="bf16") gives synthesize's frame kernel bfloat16
 embedding tables (the JAX package's LPCNET_KERNEL_TABLES=bf16); every other
 mode keeps float32 tables, as in the JAX package.
+
+synthesize, synthesize_teacher and synthesize_streaming are jit-compiled as
+the JAX package's are (lpcnet_tpu/vocoder.py:68-69, :150): on the card the
+first call of each argument signature runs eagerly, the second captures the
+call as a CUDA graph, and it and every later call replay it
+(utils/graphs.py); graphs.disabled() runs them eagerly, and on the CPU they
+always run eagerly. synthesize_temperature (jitted at vocoder.py:123 there)
+stays eager here: its graph would unroll every sample step's small ops, and
+its capture takes seconds per frame on an H100 (chip_smoke.py phase 4l
+prints it).
 """
 from typing import Any, Dict, Optional, Tuple
 
@@ -27,6 +37,7 @@ from .device import resolve_device
 from .kernels import sample_cuda, sample_dotprod, sample_scan
 from .models import lpcnet
 from .ops import kiss99
+from .utils import graphs
 
 TABLE_TYPES = ("f32", "bf16")
 BACKENDS = ("auto", "dotprod")
@@ -87,23 +98,33 @@ class Synthesizer:
         if backend == "dotprod":
             self.qtables = sample_dotprod.quantize_tables(
                 self.tables, self.cfg, su_bias=dotprod_su)
+        self._synth = graphs.jit(self._synthesize, "Synthesizer.synthesize")
+        self._synth_teacher = graphs.jit(
+            self._synthesize_teacher, "Synthesizer.synthesize_teacher")
+        self._synth_streaming = graphs.jit(
+            self._synthesize_streaming, "Synthesizer.synthesize_streaming")
 
     def reset(self, batch: int, per_stream_rng: bool = False):
         """Fresh per-stream state (lpcnet_reset, lpcnet.c:174-182)."""
         seeds = kiss99.batched_seed(batch, per_stream=per_stream_rng)
         return sample_scan.init_state(batch, self.cfg, seeds, self.device)
 
+    def _f32(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+
     def conditions(self, features) -> Dict[str, torch.Tensor]:
         """features (B, T, >=20) -> cond_a, cond_b, lpc, cfeat."""
-        f = torch.as_tensor(features, dtype=torch.float32,
-                            device=self.device)
-        return lpcnet.frame_conditions(self.params, f, self.cfg, self.tables)
+        return lpcnet.frame_conditions(self.params, self._f32(features),
+                                       self.cfg, self.tables)
 
-    @torch.no_grad()
     def synthesize(self, state, features
                    ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
         """features: (B, T, 20..36) -> (new_state, pcm (B, T*160) float32
         of rounded int16-range samples)."""
+        return self._synth(state, self._f32(features))
+
+    @torch.no_grad()
+    def _synthesize(self, state, features):
         conds = self.conditions(features)
         if self.backend == "dotprod":
             return sample_dotprod.synthesize_frames_dotprod(
@@ -111,23 +132,28 @@ class Synthesizer:
         return sample_cuda.synthesize_frames(self.frame_tables, state, conds,
                                              self.cfg, variant=self.variant)
 
-    @torch.no_grad()
     def synthesize_teacher(self, state, features, target, preload):
         """Teacher-forced synthesis (the C 'preload' mode, lpcnet.c:256-261):
         per frame, samples [0, preload[b, t]) follow `target` (B, T*160)
         instead of the sampled excitation; preload (B, T) int. One
         synth_samples call per frame. Returns (new_state, pcm (B, T*160))."""
-        conds = self.conditions(features)
-        target = torch.as_tensor(target, dtype=torch.float32,
-                                 device=self.device)
+        features = self._f32(features)
+        target = self._f32(target)
         preload = torch.as_tensor(preload, dtype=torch.int32,
                                   device=self.device)
+        B, T = features.shape[:2]
         fs = self.cfg.frame_size
-        B, T = conds["cond_a"].shape[:2]
         if target.shape != (B, T * fs) or preload.shape != (B, T):
             raise ValueError(
                 f"target must be {(B, T * fs)} and preload {(B, T)}, not "
                 f"{tuple(target.shape)} and {tuple(preload.shape)}")
+        return self._synth_teacher(state, features, target, preload)
+
+    @torch.no_grad()
+    def _synthesize_teacher(self, state, features, target, preload):
+        conds = self.conditions(features)
+        fs = self.cfg.frame_size
+        T = conds["cond_a"].shape[1]
         pcm = []
         for t in range(T):
             cond = {k: conds[k][:, t].contiguous()
@@ -139,7 +165,6 @@ class Synthesizer:
             pcm.append(out)
         return state, torch.cat(pcm, dim=1) if pcm else target
 
-    @torch.no_grad()
     def synthesize_temperature(self, state, features):
         """Temperature/PDF-floor sampling (training_tf2/test_lpcnet.py:
         131-138): voiced frames are sharpened with p *= p^max(0,
@@ -147,9 +172,14 @@ class Synthesizer:
         noisy voiced segments at the price of leaving the C-bit-exact
         sampling path. It runs the plain PyTorch loop on the synthesizer's
         device, the card included: the JAX package has no kernel for this
-        mode either (its scan backend only)."""
-        f = torch.as_tensor(features, dtype=torch.float32,
-                            device=self.device)
+        mode either (its scan backend only). It runs eagerly on the card
+        too, not as a CUDA graph: a graph holds every operation of every
+        sample step, and its capture takes seconds per frame on an H100
+        (chip_smoke.py phase 4l), minutes for a CLI chunk of 64 frames."""
+        return self._synthesize_temperature(state, self._f32(features))
+
+    @torch.no_grad()
+    def _synthesize_temperature(self, state, f):
         conds = self.conditions(f)
         texp = torch.clamp(1.5 * f[..., 19] - 0.5, min=0.0)
         return sample_scan.synthesize_frames(self.tables, state, conds,
@@ -163,7 +193,6 @@ class Synthesizer:
                 "fnet": lpcnet.frame_net_init_state(batch, self.cfg,
                                                     self.device)}
 
-    @torch.no_grad()
     def synthesize_streaming(self, state, features):
         """Sample-exact twin of the C engine (lpcnet_synthesize,
         lpcnet.c:279-281): causal convs with warm-up zeroing, FEATURES_DELAY
@@ -175,8 +204,10 @@ class Synthesizer:
         The batched `synthesize` uses same-padded convs, whose conditioning
         alignment differs from the C's causal delay line.
         features (B, T, >=20). Returns (new_state, pcm (B, T*160))."""
-        f = torch.as_tensor(features, dtype=torch.float32,
-                            device=self.device)
+        return self._synth_streaming(state, self._f32(features))
+
+    @torch.no_grad()
+    def _synthesize_streaming(self, state, f):
         cfg = self.cfg
         fnet, synth = state["fnet"], state["synth"]
         pcm = []

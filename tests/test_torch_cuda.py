@@ -550,19 +550,28 @@ def test_shard_synthesis_on_the_card_equals_one_synthesizer(card, backend,
 def test_bench_headline_runs_the_frame_kernel_under_its_plan(card,
                                                             monkeypatch):
     """The bench's headline at B=8 x 2 frames, one timed call after the
-    warm-up: four launches of the flat frame kernel (K1), every one under
-    plan L, and a trace of the timed call with sample-kernel time in it."""
+    warm-up, through the graphed synthesize: the warm-up's first call runs
+    eagerly and its second captures (two launches of the flat frame kernel
+    (K1) in each, every one under plan L), the capturing call and the
+    timed one replay it, and a trace of the timed call has sample-kernel
+    time in it."""
     from lpcnet_tpu_torch import bench
+    from lpcnet_tpu_torch.utils import graphs
     monkeypatch.setenv("LPCNET_BENCH_BATCH", "8")
     monkeypatch.setenv("LPCNET_BENCH_FRAMES", "2")
     monkeypatch.setenv("LPCNET_BENCH_ITERS", "1")
     for counts in (sample_cuda.launches, sample_cuda.plan_launches):
         for k in counts:
             counts[k] = 0
+    graphs.captures.clear()
+    graphs.replays.clear()
     result, rt, util = bench.bench_synthesis(card)
-    assert sample_cuda.launches["flat"] == 4
-    assert sum(sample_cuda.launches.values()) == 4
-    assert sample_cuda.plan_launches == {"L": 4, "T": 0}
+    n = 2 * graphs.CAPTURE_CALL
+    assert sample_cuda.launches["flat"] == n
+    assert sum(sample_cuda.launches.values()) == n
+    assert sample_cuda.plan_launches == {"L": n, "T": 0}
+    assert graphs.captures == {"Synthesizer.synthesize": 1}
+    assert graphs.replays == {"Synthesizer.synthesize": 2}
     assert result["metric"] == "synthesis_rt_factor_per_chip" and rt > 0
     assert util is not None and 0 < util["duty_cycle"] <= 1
     assert 0 < util["device_occupancy"] <= 1
@@ -620,3 +629,208 @@ def test_graft_capture_fails_on_a_per_call_upload(card, monkeypatch):
     monkeypatch.undo()
     step = graft_entry.compile_step(fn, args)
     assert torch.equal(step(*args)[1], fn(*args)[1])
+
+
+# ---- the entry points as CUDA graphs (utils/graphs.py): (entry point,
+# variant) of each graphed case; every one at B=1 (plan L) and B=1024
+# (plan T), a chain of GRAPH_CALLS calls that carries the state
+GRAPH_CASES = ["synthesize-flat", "synthesize-base", "synthesize-fuse",
+               "synthesize-opt", "synthesize-flat_bf16",
+               "synthesize-opt_bf16", "synthesize_teacher",
+               "synthesize_streaming", "PLCEngine", "NonCausalPLCEngine",
+               "StrictCausalPLCEngine", "dred_encode", "dred_decode"]
+GRAPH_CALLS, GRAPH_FRAMES = 3, 2
+
+
+def _graph_case(card, case, batch, calls=GRAPH_CALLS):
+    """(the jit, the public method, the initial state or None, the
+    arguments of each call after the state) of a graphed entry point at
+    `batch` streams on the shipped weights."""
+    from lpcnet_tpu_torch import convert, plc
+    from lpcnet_tpu_torch.dred import DREDCodec
+    T = GRAPH_FRAMES
+    n = max(calls * T, 64)                 # DRED takes 64 frames a call
+    offs = (5 * np.arange(batch)) % (len(FEATS) - n)
+    feats = np.stack([FEATS[o:o + n] for o in offs])
+    per_call = [(feats[:, i * T:(i + 1) * T],) for i in range(calls)]
+    rs = np.random.RandomState(batch)
+    if case.startswith("synthesize-"):
+        variant, _, tables = case.split("-")[1].partition("_")
+        voc = Synthesizer(device=card, variant=variant,
+                          tables=tables or "f32")
+        return (voc._synth, voc.synthesize,
+                voc.reset(batch, per_stream_rng=True), per_call)
+    if case == "synthesize_teacher":
+        voc = Synthesizer(device=card)
+        args = [(f, (rs.randn(batch, T * 160) * 3000).astype(np.float32),
+                 rs.randint(0, 161, (batch, T))) for (f,) in per_call]
+        return (voc._synth_teacher, voc.synthesize_teacher,
+                voc.reset(batch, per_stream_rng=True), args)
+    if case == "synthesize_streaming":
+        voc = Synthesizer(device=card)
+        return (voc._synth_streaming, voc.synthesize_streaming,
+                voc.reset_streaming(batch, True), per_call)
+    if case.startswith("dred"):
+        params, cfg = convert.load_dred(None, device=card)
+        dc = DREDCodec(params, cfg, device=card)
+        feats64 = [torch.as_tensor(feats[:, :, :20], device=card)
+                   + 0.01 * i for i in range(calls)]
+        if case == "dred_encode":
+            return dc._encode, dc.encode, None, [(f,) for f in feats64]
+        args = []
+        for f in feats64:
+            zd, sd = dc._encode_impl(f)
+            args.append((*dc.quantize_payload(zd), sd[:, 0]))
+        return dc._decode, dc.decode, None, args
+    eng = getattr(plc, case)(convert.load_lpcnet(device=card),
+                             convert.load_plc(device=card), device=card)
+    pcm = (rs.randn(batch, calls * 160) * 3000).astype(np.float32)
+    lost = rs.uniform(size=(batch, calls)) < 0.3
+    lost[0, :3] = [False, True, False][:calls]  # stream 0: a loss, a blend
+    return (eng._step, eng.step, eng.init_state(batch),
+            [(pcm[:, t * 160:(t + 1) * 160], lost[:, t])
+             for t in range(calls)])
+
+
+def _chain(method, state, args):
+    """The calls in order, each on the state the last one left (None: a
+    stateless entry point)."""
+    outs = []
+    for a in args:
+        outs.append(method(*a) if state is None else method(state, *a))
+        state = None if state is None else outs[-1][0]
+    return outs
+
+
+def _tree_equal(a, b) -> bool:
+    from lpcnet_tpu_torch.utils import graphs
+    la, sa = graphs.flatten(a)
+    lb, sb = graphs.flatten(b)
+    return sa == sb and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 1024], ids=["B1", "B1024"])
+@pytest.mark.parametrize("case", GRAPH_CASES)
+def test_graphed_entry_point_bit_identical_to_eager(card, case, batch):
+    """Each entry point's chain of calls, graphed, is bit-identical to the
+    same chain under graphs.disabled(), its outputs and every state leaf:
+    K1/K2/K5 (f32 and bf16), K3 and K4 inside captures, under plan L at
+    B=1 and plan T at B=1024. The first call runs eagerly, the second
+    captures; it and every later call replay, and no replay launches a
+    kernel from the host."""
+    from lpcnet_tpu_torch.utils import graphs
+    step, method, state, args = _graph_case(card, case, batch)
+    graphs.captures.clear()
+    graphs.replays.clear()
+    with graphs.disabled():
+        eager = _chain(method, state, args)
+    assert not graphs.captures and not graphs.replays
+    k = graphs.CAPTURE_CALL
+    graphed = _chain(method, state, args[:k])
+    if not case.startswith("dred"):          # DRED launches no sample kernel
+        assert sample_cuda.last_plan[0] == ("L" if batch == 1 else "T")
+    before = dict(sample_cuda.launches)
+    graphed += _chain(method, None if state is None else graphed[-1][0],
+                      args[k:])
+    assert sample_cuda.launches == before
+    assert graphs.captures == {step.name: 1}
+    assert graphs.replays == {step.name: len(args) - k + 1}
+    for e, g in zip(eager, graphed):
+        assert _tree_equal(e, g), case
+
+
+@pytest.mark.cuda
+def test_graph_cache_replays_a_shape_and_captures_a_new_one(card):
+    """The first call of a signature runs eagerly, the second captures it
+    and replays, the third replays the same graph; a new batch or frame
+    count runs eagerly once and then captures a second graph; inside
+    graphs.disabled() nothing is captured or replayed; the kernel
+    wrappers' launch counters tick in the eager call and the capture
+    only. Dropping the synthesizer frees its graphs with it."""
+    import gc
+    import weakref
+    from lpcnet_tpu_torch.utils import graphs
+    name = "Synthesizer.synthesize"
+    graphs.captures.clear()
+    graphs.replays.clear()
+    voc = Synthesizer(device=card)
+    f = FEATS[None, :2]
+    before = sample_cuda.launches["flat"]
+    voc.synthesize(voc.reset(1), f)
+    assert sample_cuda.launches["flat"] == before + 2
+    assert not graphs.captures and not voc._synth.steps
+    voc.synthesize(voc.reset(1), FEATS[None, 5:7])
+    assert sample_cuda.launches["flat"] == before + 4
+    assert graphs.captures[name] == 1 and graphs.replays[name] == 1
+    before = sample_cuda.launches["flat"]
+    voc.synthesize(voc.reset(1), FEATS[None, 7:9])
+    assert sample_cuda.launches["flat"] == before
+    assert graphs.captures[name] == 1 and graphs.replays[name] == 2
+    for _ in range(2):
+        voc.synthesize(voc.reset(2), np.concatenate([f, f]))
+        voc.synthesize(voc.reset(1), FEATS[None, :3])
+    assert graphs.captures[name] == 3 and len(voc._synth.steps) == 3
+    with graphs.disabled():
+        voc.synthesize(voc.reset(1), f)
+    assert graphs.captures[name] == 3 and graphs.replays[name] == 4
+    graph = weakref.ref(next(iter(voc._synth.steps.values())).graph)
+    gc.disable()
+    try:
+        del voc
+        assert graph() is None
+    finally:
+        gc.enable()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 1024], ids=["B1", "B1024"])
+def test_plc_run_equals_its_steps(card, batch):
+    """PLCEngine.run replays the step's graph once per frame: the same
+    state and output as T step calls, graphed or eager."""
+    from lpcnet_tpu_torch.utils import graphs
+    step, method, state, args = _graph_case(card, "PLCEngine", batch, 4)
+    eng = method.__self__
+    pcm = np.concatenate([a[0] for a in args], axis=1)
+    lost = np.stack([a[1] for a in args], axis=1)
+    graphs.captures.clear()
+    graphs.replays.clear()
+    st_r, out_r = eng.run(state, pcm, lost)
+    # the first step eager, the second captured, it and the others replays
+    assert graphs.captures == {step.name: 1}
+    assert graphs.replays == {step.name: 3}
+    outs = _chain(method, state, args)
+    with graphs.disabled():
+        st_e, out_e = eng.run(state, pcm, lost)
+    assert graphs.replays == {step.name: 7}
+    assert torch.equal(out_r, torch.cat([o[1] for o in outs], 1))
+    assert torch.equal(out_r, out_e)
+    assert _tree_equal(st_r, outs[-1][0]) and _tree_equal(st_r, st_e)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("module", ["plc", "ops.burg", "features"])
+def test_graphed_step_fails_on_a_per_call_upload(card, monkeypatch, module):
+    """What the device constants repair: with one module's numpy constants
+    uploaded in every call again (a pageable copy, which waits on the
+    stream), PLCEngine.step runs eagerly on its first call but cannot be
+    captured on its second, and it raises naming itself rather than run
+    eagerly. The step captures once the constants stay on the card (made
+    by an eager call)."""
+    import importlib
+    from lpcnet_tpu_torch.utils import graphs
+    mod = importlib.import_module("lpcnet_tpu_torch." + module)
+    step, method, state, args = _graph_case(card, "PLCEngine", 1, 1)
+    graphs.captures.clear()
+    monkeypatch.setattr(mod, "device_constant",
+                        lambda a, device: torch.as_tensor(a, device=device))
+    method(state, *args[0])
+    with pytest.raises(RuntimeError, match="PLCEngine.step: the call could "
+                                           "not be captured"):
+        method(state, *args[0])
+    assert not graphs.captures and step.steps == {}
+    monkeypatch.undo()
+    with graphs.disabled():
+        method(state, *args[0])
+    method(state, *args[0])
+    assert graphs.captures == {step.name: 1}

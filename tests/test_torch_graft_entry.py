@@ -12,9 +12,9 @@ import torch
 
 from lpcnet_tpu.models import lpcnet as j_lpcnet
 from lpcnet_tpu.vocoder import Synthesizer as JSynthesizer
-from lpcnet_tpu_torch import convert, graft_entry
-from lpcnet_tpu_torch.kernels import sample_cuda
-from lpcnet_tpu_torch.ops import dsp, tables
+from lpcnet_tpu_torch import convert, features, graft_entry, plc
+from lpcnet_tpu_torch.kernels import sample_cuda, sample_scan
+from lpcnet_tpu_torch.ops import burg, dsp, mulaw, tables
 from lpcnet_tpu_torch.vocoder import Synthesizer
 
 REPO = os.path.join(os.path.dirname(__file__), os.pardir)
@@ -85,6 +85,19 @@ def test_entry_matches_jax_entry(jax_side, inputs):
     assert rng_exact and exact >= 0.95 and corr >= 0.999, (exact, corr)
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """torch on one intra-op thread while each test runs: the plain loop
+    at B=32 issues many small operations just over the size torch splits
+    over its thread pool, and with other test processes on the host's
+    cores each split waits on contended threads (measured on an 8-core
+    host with 6 busy processes: over 250 s against 8 s on one thread)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_entry_equals_synthesizer():
     """entry's fn is Synthesizer.synthesize on the same state and features,
     bit for bit; the example args are JAX's shapes, B=32 x one frame of
@@ -141,19 +154,61 @@ def test_main_on_cpu_calls_the_step_eagerly(monkeypatch, capsys):
     assert calls == [(1, {"device": torch.device("cpu")})]
 
 
+# the numpy values of the constants the PLC, synthesis and DRED paths keep
+# on the device, computed here as each module computes it
+_NEW_CONSTANTS = {
+    "_INTERP": (features, np.array(
+        [0.026184, -0.098339, 0.369938, 0.837891, -0.184969, 0.070242,
+         -0.020947], dtype=np.float32)),
+    "ULAW2LIN_TABLE": (mulaw, mulaw._c_ulaw2lin_table()),
+    "_BW": (burg, 0.995 ** np.arange(1, 17, dtype=np.float32)),
+    "ATT_TABLE": (plc, np.array([0, 0, -.2, -.2, -.4, -.4, -.8, -.8, -1.6,
+                                 -1.6], dtype=np.float32)),
+    "SAMPLING_LOGIT_TABLE": (tables, tables._sampling_logit_table()),
+    "NODE_LEVEL": (sample_scan, np.array(
+        [0] + [n.bit_length() - 1 for n in range(1, 256)], np.int64)),
+    "FLAT_SCORE_W": (sample_scan, None),
+    "FLAT_TARGET_LEAF": (sample_scan, None),
+}
+
+
+def _flat_tables():
+    """FLAT_SCORE_W and FLAT_TARGET_LEAF from their definition
+    (sample_pallas.py:99-127), independently of the module's loop."""
+    w = np.zeros((256, 256), np.float32)
+    leaf = np.zeros((2, 256), np.float32)
+    for c in range(256):
+        bits = [(c >> (7 - b)) & 1 for b in range(8)]
+        for b in range(8):
+            w[(1 << b) + (c >> (8 - b)), c] = 2.0 * bits[b] - 1.0
+        leaf[:, c] = sum(bits), c
+    return {"FLAT_SCORE_W": w, "FLAT_TARGET_LEAF": leaf}
+
+
 @pytest.mark.parametrize("const", ["DCT_TABLE", "BAND_INTERP", "COMPENSATION",
-                                   "_LAG", "TANSIG_TABLE"])
+                                   "_LAG", "TANSIG_TABLE"]
+                         + list(_NEW_CONSTANTS))
 def test_device_constants_are_made_once(const):
-    """The constants of the conditioning's DSP and activations are made on
-    a device once and the same tensor is given on every later call, with
-    the numpy constant's values and type; a per-gamma weighting array is
-    made once per gamma."""
-    a = getattr(dsp, const, None)
-    a = getattr(tables, const) if a is None else a
+    """The constants of the conditioning's DSP and activations, and those
+    of the PLC, burg, feature, mu-law and sampling paths, are made on a
+    device once and the same tensor is given on every later call, with the
+    numpy constant's values and type; a per-gamma weighting array is made
+    once per gamma."""
+    if const in _NEW_CONSTANTS:
+        module, want = _NEW_CONSTANTS[const]
+        a = getattr(module, const)
+        want = _flat_tables()[const] if want is None else want
+        assert a.dtype == want.dtype
+        np.testing.assert_array_equal(a, want)
+    else:
+        a = getattr(dsp, const, None)
+        a = getattr(tables, const) if a is None else a
     t = tables.device_constant(a, torch.device("cpu"))
     assert tables.device_constant(a, torch.device("cpu")) is t
     assert tables.device_constant(a, "cpu") is t
-    assert t.dtype == torch.float32 and t.device.type == "cpu"
+    assert t.dtype == torch.from_numpy(a).dtype and t.device.type == "cpu"
+    if const not in _NEW_CONSTANTS:
+        assert t.dtype == torch.float32
     np.testing.assert_array_equal(t.numpy(), a)
     g = dsp._gamma_powers(0.9)
     assert dsp._gamma_powers(0.9) is g
