@@ -113,14 +113,20 @@ Phases, each fatal on failure:
                train-lpcnet at LPCNetConfig(): one noise-free step on the
                card against the host CPU at B=4 x 2400 (loss relative
                1e-5, gradients within 1e-4 of each leaf's largest entry,
-               TF32 refused), 8 steps on one batch of 32 with the loss
-               falling, then the command for 2 epochs of 3 steps and its
-               --resume (parameters restored bit for bit, step and Adam
-               counts continued); train-plc (PLCConfig(), seq 200 x 8),
-               train-rdovae (cond 1024/256, seq 400 x 8) and vq-train at
-               the shipped sizes (--iters 1 --final-iters 2) through their
-               commands. [train] lines: ms per step and training samples
-               per s, peak memory, s per dump-data pass, vq-train s,
+               TF32 refused). Each trainer's train_step as a user runs
+               it, a CUDA graph from its second step (LPCNet 32 x 2400 x
+               6 steps with the loss falling, PLC PLCConfig() seq 200 x 8,
+               RDO-VAE cond 1024/256 seq 400 x 8), against 3 eager steps
+               from the same seeds: the graphed steps bit-identical
+               (params, Adam state, metrics, the generator's state);
+               eager and replayed ms per step, samples (frames) per s,
+               the capture's s and the graph's nodes, peak memory. Then
+               train-lpcnet for 2 epochs of 3 steps (one capture, 5
+               replays) and its --resume (parameters restored bit for
+               bit, step and Adam counts continued), train-plc,
+               train-rdovae and vq-train at the shipped sizes
+               (--iters 1 --final-iters 2) through their commands.
+               [train] lines also: s per dump-data pass, vq-train s,
                whether the native library loaded or was built. No sample
                kernel launches in this phase.
   4h. dp    - multi-GPU over torch.distributed (parallel/mesh.py), each
@@ -166,7 +172,8 @@ Phases, each fatal on failure:
                headline (K1 under plan T, 1024 streams x 50 frames, 1
                capture and 6 replays), the latency stage (K1 under plan L
                at B=1 and B=8, a capture and 201 replays each) and the PLC
-               stage (K3 under plan T, 1024 x 8 frames); no other stage
+               stage (K3 under plan T, 1024 x 8 frames); the train stage
+               captures its step once and replays it; no other stage
                launches a sample kernel, and DRED's stage captures encode
                and decode. The launches the card ran (the eager calls'
                and the replays') are counted beside those from the host.
@@ -263,6 +270,7 @@ without the lpcnet_tpu_torch package beside it, it exits non-zero before
 printing any result.
 """
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -320,7 +328,13 @@ TRAIN_PASSES, PLC_PASSES = 24, 16
 # flip one excitation step, after which the stream runs apart for a while,
 # so the card's sig_in is held to the CPU's by fraction and by RMS
 SIG_IN_EQUAL, SIG_IN_RMS = 0.95, 1e-2
-TRAIN_BATCH, TRAIN_STEPS = 32, 8
+TRAIN_BATCH, TRAIN_STEPS = 32, 6
+# steps of each trainer's eager run (the first a warm-up, the others
+# timed), held bit for bit against the graphed run's first steps; the
+# graphed run's steps (the first eager, the second captured, the others
+# replays, timed)
+TRAIN_HELD = 3
+PLC_STEPS, RDOVAE_STEPS = 6, 5
 PLC_SEQ, PLC_BATCH = 200, 8
 RDOVAE_SEQ, RDOVAE_BATCH = 400, 8
 # phase 4h: streams and frames of stream-parallel synthesis, frames of the
@@ -1186,7 +1200,9 @@ def main() -> int:
     # ---- 4g. training; no hand-written kernel on its path
     phase("4g train")
     before = dict(sample_cuda.launches)
+    eager.close()            # the train steps run graphed, as a user runs them
     train_phase(dev, card)
+    eager.enter_context(graphs.disabled())
     if dict(sample_cuda.launches) != before:
         raise RuntimeError("train: the training path launched a sample "
                            "kernel")
@@ -1969,13 +1985,15 @@ def train_phase(dev, card) -> None:
     by SIG_IN_EQUAL and SIG_IN_RMS), and dump-data btrain for PLC. train-lpcnet at
     LPCNetConfig(): one noise-free step on the card against the same step
     on the host's CPU at B=4 (loss relative 1e-5, every gradient leaf
-    within 1e-4 of its largest entry), TRAIN_STEPS steps on one batch of
-    32 with the loss falling, then the command for 2 epochs of 3 steps
-    and a --resume of its last checkpoint (the parameters restored bit
-    for bit, the step count continued). train-plc at PLCConfig(),
-    train-rdovae at cond 1024/256 and vq-train at the shipped sizes, each
-    through its command and its steps timed. Raises RuntimeError on a
-    failed gate."""
+    within 1e-4 of its largest entry). Each trainer's train_step (LPCNet
+    on one batch of 32 with the loss falling, PLC, RDO-VAE) eager and
+    graphed (graphed_against_eager: eager and replayed ms, capture s,
+    graph nodes, peak memory; the graphed steps bit-identical to the
+    eager ones). train-lpcnet for 2 epochs of 3 steps (one capture, 5
+    replays) and a --resume of its last checkpoint (the parameters
+    restored bit for bit, the step count continued); train-plc,
+    train-rdovae and vq-train at the shipped sizes through their
+    commands. Raises RuntimeError on a failed gate."""
     import tempfile
     import torch
     from lpcnet_tpu_torch import cli, convert
@@ -1985,7 +2003,7 @@ def train_phase(dev, card) -> None:
     from lpcnet_tpu_torch.models import rdovae as rv
     from lpcnet_tpu_torch.training import (lpcnet_task, optim, plc_task,
                                            rdovae_task)
-    from lpcnet_tpu_torch.utils import checkpoint, native
+    from lpcnet_tpu_torch.utils import checkpoint, graphs, native
     card_dev = str(dev)
 
     def line(msg):
@@ -1998,18 +2016,92 @@ def train_phase(dev, card) -> None:
             raise RuntimeError(f"train: {' '.join(argv[:2])} exit {rc}")
         return time.perf_counter() - t0
 
-    def timed_steps(step, n):
-        """ms per step of n steps after one warm-up step, and the peak
-        memory of the steps (host clock, synchronised)."""
-        step()
-        torch.cuda.synchronize(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        t0 = time.perf_counter()
-        for _ in range(n):
-            step()
-        torch.cuda.synchronize(dev)
-        return ((time.perf_counter() - t0) * 1e3 / n,
-                torch.cuda.max_memory_allocated(dev))
+    def graphed_against_eager(tag, jit, make, n, samples):
+        """The trainer's train_step (jit) from a fresh run (make() ->
+        params, optimizer state, a function of (params, state) giving a
+        step's arguments, the generator): TRAIN_HELD steps eagerly
+        (graphs.disabled()) and n steps graphed, the first eager, the
+        second captured and replayed, the others replays. The graphed
+        run's first TRAIN_HELD steps (params, Adam state and metrics, and
+        the generator's state after them) must be the eager run's bit for
+        bit. Prints the eager and replayed ms per step, `samples` (a count
+        and its unit) per s of each, the capture's s, the graph's nodes
+        (the capture keeps its cudaGraph_t), the peak memory allocated
+        over what was allocated at the start of an eager step, of the
+        capturing step and of a replay, and the memory reserved over the
+        capturing step. Returns the graphed run's losses."""
+        def run(n_steps, graphed, timed_from):
+            p, st, args, gen = make()
+            outs, ms, mem, losses, gen_at = [], [], {}, [], None
+            with contextlib.nullcontext() if graphed else graphs.disabled():
+                for k in range(n_steps):
+                    if graphed and k == 1:
+                        # the capture empties the cache itself; emptied
+                        # here, the growth of the reserved memory over
+                        # the capturing step is the graph's pool
+                        torch.cuda.empty_cache()
+                    torch.cuda.synchronize(dev)
+                    torch.cuda.reset_peak_memory_stats(dev)
+                    held = torch.cuda.memory_allocated(dev)
+                    reserved = torch.cuda.memory_reserved(dev)
+                    t0 = time.perf_counter()
+                    p, st, m = jit(*args(p, st))
+                    torch.cuda.synchronize(dev)
+                    if k >= timed_from:
+                        ms.append((time.perf_counter() - t0) * 1e3)
+                    mem[k] = (torch.cuda.max_memory_allocated(dev) - held,
+                              torch.cuda.memory_reserved(dev) - reserved)
+                    losses.append(float(m["loss"]))
+                    if k < TRAIN_HELD:
+                        outs.append((p, st, m))
+                    if k == TRAIN_HELD - 1:
+                        gen_at = gen.get_state()
+            return outs, ms, mem, losses, gen_at
+
+        jit.clear()
+        graphs.captures.clear()
+        graphs.replays.clear()
+        eager, e_ms, e_mem, _, e_gen = run(TRAIN_HELD, False, 1)
+        # the jit's capture keeps its cudaGraph_t, for the node count
+        capture = graphs.compile_step
+        graphs.compile_step = functools.partial(capture, keep_graph=True)
+        try:
+            graphed, g_ms, g_mem, losses, g_gen = run(n, True, 2)
+        finally:
+            graphs.compile_step = capture
+        (step,) = jit.steps.values()
+        nodes = graphs.graph_nodes(step.graph)
+        counts = (graphs.captures[jit.name], graphs.replays[jit.name])
+        same = (all(_same_tree(a, b) for a, b in zip(eager, graphed))
+                and torch.equal(e_gen, g_gen))
+        jit.clear()
+        eager_ms, replay_ms = float(np.mean(e_ms)), float(np.mean(g_ms))
+        n_s, unit = samples
+        gib = 2.0 ** 30
+        line(f"{tag}: eager {eager_ms:.1f} ms per step "
+             f"({n_s / eager_ms * 1e3:.0f} {unit} per s, mean of "
+             f"{len(e_ms)} after a warm-up step), replayed {replay_ms:.1f} "
+             f"({n_s / replay_ms * 1e3:.0f} {unit} per s, mean of "
+             f"{len(g_ms)}; {eager_ms / replay_ms:.2f}x); capture "
+             f"{step.capture_s:.2f} s (instantiation included), {nodes} "
+             f"graph nodes; {counts[0]} capture and {counts[1]} replays in "
+             f"{n} steps; peak memory allocated over the step's start: "
+             f"eager step {e_mem[1][0] / gib:.2f} GiB, capturing step "
+             f"{g_mem[1][0] / gib:.2f}, replay {g_mem[n - 1][0] / gib:.2f}; "
+             f"reserved over the capturing step {g_mem[1][1] / gib:+.2f} "
+             f"GiB (the graph's pool)")
+        line(f"{tag}: {TRAIN_HELD} graphed steps (eager, captured, replayed) "
+             f"against {TRAIN_HELD} eager from the same parameters, Adam "
+             f"state, inputs and generator seed: params, moments, counts, "
+             f"metrics and the generator's state bit-identical {same}; "
+             f"graphed losses {losses}")
+        if not same:
+            raise RuntimeError(f"train: {tag}: the graphed steps are not "
+                               f"the eager ones")
+        if counts != (1, n - 1):
+            raise RuntimeError(f"train: {tag}: {counts} captures and "
+                               f"replays in {n} steps")
+        return losses
 
     with tempfile.TemporaryDirectory() as tmp:
         def path(name):
@@ -2079,26 +2171,21 @@ def train_phase(dev, card) -> None:
             raise RuntimeError("train: the card's gradients are not the "
                                "CPU's")
 
-        # ---- TRAIN_STEPS steps on one batch of 32, timed
+        # ---- the train step at 32 x 2400, graphed against eager
         opt = lpcnet_task.make_optimizer()
-        st = {"p": convert.to_device(init, dev)}
-        st["s"] = opt.init(st["p"])
-        gen = torch.Generator(device=dev).manual_seed(1)
         tb = {k: torch.as_tensor(v, device=dev) for k, v in big.items()}
-        losses = []
-
-        def lpc_step():
-            st["p"], st["s"], m = lpcnet_task.train_step(
-                st["p"], st["s"], tb, cfg, opt, gen)
-            losses.append(float(m["loss"]))
-
-        ms, mem = timed_steps(lpc_step, TRAIN_STEPS - 1)
         S = big["sig_in"].shape[1]
-        line(f"train-lpcnet {TRAIN_STEPS} steps on one batch of "
-             f"{TRAIN_BATCH} x {S}: loss {losses[0]:.4f} -> "
-             f"{losses[-1]:.4f}; {ms:.1f} ms per step, "
-             f"{TRAIN_BATCH * S / ms * 1e3:.0f} training samples per s; "
-             f"max memory allocated {mem / 2**30:.2f} GiB")
+
+        def lpc_run():
+            gen = torch.Generator(device=dev).manual_seed(1)
+            p = convert.to_device(init, dev)
+            return (p, opt.init(p),
+                    lambda p, s: (p, s, tb, cfg, opt, gen), gen)
+
+        losses = graphed_against_eager(
+            f"train-lpcnet LPCNetConfig() {TRAIN_BATCH} x {S}",
+            lpcnet_task.train_step, lpc_run, TRAIN_STEPS,
+            (TRAIN_BATCH * S, "training samples"))
         if not losses[-1] < losses[0]:
             raise RuntimeError(f"train: the loss did not fall: {losses}")
 
@@ -2106,7 +2193,12 @@ def train_phase(dev, card) -> None:
         run_dir = path("lpcnet")
         argv = ["train-lpcnet", path("f0.f32"), path("d0.s16"), run_dir,
                 "--device", card_dev]
+        name = lpcnet_task.train_step.name
+        graphs.captures.clear()
+        graphs.replays.clear()
         sec = run(argv + ["--epochs", "2", "--steps-per-epoch", "3"])
+        counts = (graphs.captures[name], graphs.replays[name])
+        lpcnet_task.train_step.clear()
         ck = os.path.join(run_dir, "ckpt_001.bin")
         tree, leaves, step, _ = checkpoint.load_training(ck)
         args = cli.build_parser().parse_args(argv + ["--resume", ck])
@@ -2117,15 +2209,17 @@ def train_phase(dev, card) -> None:
                     "1"])
         step2 = checkpoint.load_training(
             os.path.join(run_dir, "ckpt_002.bin"))[2]
-        line(f"train-lpcnet --epochs 2 --steps-per-epoch 3: {sec:.1f} s; "
+        line(f"train-lpcnet --epochs 2 --steps-per-epoch 3: {sec:.1f} s, "
+             f"{counts[0]} capture and {counts[1]} replays of {name}; "
              f"--resume: parameters restored bit for bit {exact}, step "
-             f"{step0} (saved {step}), optimizer counts {state['count']}/"
-             f"{state['sched_count']}, epoch {epoch0}; one more step -> "
-             f"step {step2}")
-        if not (exact and step0 == step == 6 and state["count"] == 6
-                and state["sched_count"] == 6 and epoch0 == 2
-                and step2 == 7):
-            raise RuntimeError("train: train-lpcnet --resume is not exact")
+             f"{step0} (saved {step}), optimizer counts "
+             f"{int(state['count'])}/{int(state['sched_count'])}, epoch "
+             f"{epoch0}; one more step -> step {step2}")
+        if not (exact and step0 == step == 6 and int(state["count"]) == 6
+                and int(state["sched_count"]) == 6 and epoch0 == 2
+                and step2 == 7 and counts == (1, 5)):
+            raise RuntimeError("train: train-lpcnet --resume is not exact "
+                               "or the command's steps were not replayed")
 
         # ---- train-plc at PLCConfig(), seq-len and batch cut to the corpus
         pcfg = plc_model.PLCConfig()
@@ -2135,25 +2229,24 @@ def train_phase(dev, card) -> None:
         lost = torch.as_tensor(
             np.random.RandomState(0).uniform(size=(B, T)) > 0.2, device=dev)
         popt = plc_task.make_optimizer()
-        pst = {"p": convert.to_device(
-            plc_model.init_params(torch.Generator().manual_seed(0), pcfg),
-            dev)}
-        pst["s"] = popt.init(pst["p"])
-        pgen = torch.Generator(device=dev).manual_seed(1)
+        pinit = plc_model.init_params(torch.Generator().manual_seed(0), pcfg)
 
-        def plc_step():
-            pst["p"], pst["s"], _ = plc_task.train_step(
-                pst["p"], pst["s"], plc_task.make_batch(pgen, pf, lost),
-                pcfg, popt)
+        def plc_run():
+            gen = torch.Generator(device=dev).manual_seed(1)
+            p = convert.to_device(pinit, dev)
+            return (p, popt.init(p),
+                    lambda p, s: (p, s, plc_task.make_batch(gen, pf, lost),
+                                  pcfg, popt), gen)
 
-        ms, mem = timed_steps(plc_step, 3)
+        graphed_against_eager(f"train-plc PLCConfig() {B} x {T}",
+                              plc_task.train_step, plc_run, PLC_STEPS,
+                              (B * T, "training frames"))
         sec = run(["train-plc", path("b.f32"), path("plc"), "--seq-len",
                    str(T), "--batch-size", str(B), "--epochs", "1",
                    "--device", card_dev])
+        plc_task.train_step.clear()
         line(f"train-plc PLCConfig(), --seq-len {T} --batch-size {B} (cut "
-             f"from 1000 x 32 to fit the {raw.shape[0]}-frame corpus): "
-             f"{ms:.1f} ms per step, {B * T / ms * 1e3:.0f} training frames "
-             f"per s; max memory allocated {mem / 2**30:.2f} GiB; the "
+             f"from 1000 x 32 to fit the {raw.shape[0]}-frame corpus): the "
              f"command, one epoch: {sec:.1f} s")
 
         # ---- train-rdovae at the command's default 1024/256
@@ -2162,26 +2255,33 @@ def train_phase(dev, card) -> None:
         rf = torch.as_tensor(feats[:B * T, :20].reshape(B, T, 20),
                              device=dev)
         ropt = rdovae_task.make_optimizer()
-        rst = {"p": convert.to_device(rv.rate_aware_quant_init(
-            rv.init_params(torch.Generator().manual_seed(0), rcfg), rcfg),
-            dev)}
-        rst["s"] = ropt.init(rst["p"])
-        rgen = torch.Generator(device=dev).manual_seed(1)
+        rinit = rv.rate_aware_quant_init(
+            rv.init_params(torch.Generator().manual_seed(0), rcfg), rcfg)
 
-        def rdovae_step():
-            q, lam = rdovae_task.sample_lambda(rgen, B, T // 2, device=dev)
-            rst["p"], rst["s"], _ = rdovae_task.train_step(
-                rst["p"], rst["s"], rf, q, lam, rgen, rcfg, ropt)
+        def rdovae_run():
+            gen = torch.Generator(device=dev).manual_seed(1)
+            p = convert.to_device(rinit, dev)
 
-        ms, mem = timed_steps(rdovae_step, 2)
+            def args(p, s):
+                # the level drawn between steps from the noise generator,
+                # as the train-rdovae command draws it
+                q, lam = rdovae_task.sample_lambda(gen, B, T // 2,
+                                                   device=dev)
+                return (p, s, rf, q, lam, gen, rcfg, ropt)
+
+            return p, ropt.init(p), args, gen
+
+        graphed_against_eager(
+            f"train-rdovae cond {rcfg.cond_size}/{rcfg.cond_size2} {B} x {T}",
+            rdovae_task.train_step, rdovae_run, RDOVAE_STEPS,
+            (B * T, "training frames"))
         sec = run(["train-rdovae", path("f0.f32"), path("rdovae"),
                    "--seq-len", str(T), "--batch-size", str(B), "--epochs",
                    "1", "--steps-per-epoch", "1", "--device", card_dev])
+        rdovae_task.train_step.clear()
         line(f"train-rdovae cond {rcfg.cond_size}/{rcfg.cond_size2}, "
              f"--seq-len {T} --batch-size {B} (batch cut from 32 to fit "
-             f"the corpus): {ms:.1f} ms per step, {B * T / ms * 1e3:.0f} "
-             f"training frames per s; max memory allocated "
-             f"{mem / 2**30:.2f} GiB; the command, one step: {sec:.1f} s")
+             f"the corpus): the command, one step: {sec:.1f} s")
 
         # ---- vq-train at the shipped sizes
         sec = run(["vq-train", path("f0.f32"), path("cb.bin"), "--iters",
@@ -2375,7 +2475,6 @@ def _short(name: str) -> str:
     name = name.split("(")[0].replace("void ", "")
     return name if len(name) <= 60 else name[:57] + "..."
 
-
 def profile_phase(dev, card, params, eng_b1) -> None:
     """Phase 4i: parse_trace_utilization over one traced call each of
     Synthesizer.synthesize (one frame at each of PROFILE_BATCHES) and
@@ -2464,7 +2563,8 @@ def bench_phase(dev, card, report, zero_counts) -> dict:
     stage K3 once per step under plan T, each from the host in the eager
     call and the capture of its graph and never in a replay, and no other
     stage launches a sample kernel; the graphs captured and replayed per
-    stage (graphs.captures, graphs.replays) are counted beside them, and
+    stage (graphs.captures, graphs.replays) are counted beside them (the
+    train stage's lpcnet_task.train_step too: its timed steps replay), and
     the launches the card ran are the eager ones plus the replays times a
     captured call's. The headline's first frame and the latency stage's
     eager call at B=1 and at B=8 are held against the plain loop on their
@@ -2480,6 +2580,7 @@ def bench_phase(dev, card, report, zero_counts) -> dict:
     import torch
     from lpcnet_tpu_torch import bench
     from lpcnet_tpu_torch.kernels import sample_cuda, sample_scan
+    from lpcnet_tpu_torch.training import lpcnet_task
     from lpcnet_tpu_torch.utils import graphs
     from lpcnet_tpu_torch.vocoder import Synthesizer
     synth = sample_cuda.synthesize_frames
@@ -2529,6 +2630,7 @@ def bench_phase(dev, card, report, zero_counts) -> dict:
         sample_cuda.synthesize_frames = synth
         for line in buf.getvalue().splitlines():
             print(f"[bench] {line}")
+        lpcnet_task.train_step.clear()      # the train stage's graph
     print(f"[bench] {len(lines)} lines in {time.perf_counter() - t0:.1f} s "
           f"[{card}]")
     got = tuple(d["metric"] for d in lines)
@@ -2580,9 +2682,12 @@ def bench_phase(dev, card, report, zero_counts) -> dict:
     expect("bench_dred", "flat", 0, "T", graphed={
         "DREDCodec.encode": (1, BENCH_ITERS + 2),
         "DREDCodec.decode": (1, BENCH_ITERS + 1)})
+    # the train stage's step: an eager call, a capture, BENCH_ITERS replays
+    expect("bench_train", "flat", 0, "T", graphed={
+        "lpcnet_task.train_step": (1, BENCH_ITERS + 1)})
     for stage in counts:
         if stage not in ("bench_synthesis", "bench_latency", "bench_plc",
-                         "bench_dred"):
+                         "bench_dred", "bench_train"):
             expect(stage, "flat", 0, "T", graphed={})
 
     def host_and_device(stage, B, replays):

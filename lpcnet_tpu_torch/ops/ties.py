@@ -7,6 +7,9 @@ either bound (torch.clamp 1). The training losses meet such ties on
 zero-initialised parameters, masked frames and saturated mu-law, so they
 use these forms. torch.maximum and torch.minimum of two tensors already
 split the gradient 0.5 / 0.5 at equality, as jnp.maximum / jnp.minimum do.
+The float bound is a 0-d tensor filled on x's device (new_full), never an
+upload from the host, so the training steps can be captured as CUDA
+graphs.
 """
 import torch
 
@@ -31,12 +34,12 @@ def abs(x: torch.Tensor) -> torch.Tensor:  # noqa: A001 - jnp.abs's name
 
 def maximum(x: torch.Tensor, c: float) -> torch.Tensor:
     """jnp.maximum(x, c): half the gradient to x where x == c."""
-    return torch.maximum(x, x.new_tensor(c))
+    return torch.maximum(x, x.new_full((), c))
 
 
 def minimum(x: torch.Tensor, c: float) -> torch.Tensor:
     """jnp.minimum(x, c): half the gradient to x where x == c."""
-    return torch.minimum(x, x.new_tensor(c))
+    return torch.minimum(x, x.new_full((), c))
 
 
 def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:

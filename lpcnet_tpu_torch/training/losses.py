@@ -13,18 +13,21 @@ import numpy as np
 import torch
 
 from ..ops import ties
+from ..ops.tables import device_constant
 
 _SCALE = 255.0 / 32768.0
 _SCALE_1 = 32768.0 / 255.0
-_LOG256 = float(np.log(256.0).astype(np.float32))
+LOG256 = np.asarray(np.log(256.0), np.float32)     # 0-d
+_LOG256 = float(LOG256)
 
 
 def l2u(x: torch.Tensor) -> torch.Tensor:
     """Continuous mu-law with exact log (tf_funcs.py:17-23). The divisor
-    is a tensor: on CUDA a division by a Python scalar becomes a product
-    with its reciprocal, which rounds differently (ops/mulaw.py)."""
+    is a tensor on x's device: on CUDA a division by a Python scalar
+    becomes a product with its reciprocal, which rounds differently
+    (ops/mulaw.py)."""
     u = torch.sign(x) * (128.0 * torch.log1p(_SCALE * ties.abs(x))
-                         / x.new_tensor(_LOG256))
+                         / device_constant(LOG256, x.device))
     return ties.clip(128.0 + u, 0.0, 255.0)
 
 

@@ -18,6 +18,7 @@ dump_data.c:84-108), tensors on one device:
   lpc      (B, T, 16)    LPC per output frame
 with S == T * frame_size.
 """
+import functools
 from typing import Dict, Optional, Union
 
 import numpy as np
@@ -27,6 +28,8 @@ from ..device import refuse_tf32
 from ..models import layers
 from ..models.lpcnet import LPCNetConfig
 from ..ops import activations, ties
+from ..ops.tables import device_constant
+from ..utils import graphs
 from . import losses
 from .optim import ScheduledAdam, value_and_grad
 
@@ -63,6 +66,14 @@ def _diff_embed(table, u):
     return (1 - alpha) * table[lo] + alpha * table[hi]
 
 
+@functools.lru_cache(maxsize=None)
+def _gamma_weights(gamma: float, order: int) -> np.ndarray:
+    """gamma^i, i = 1..order, in float32: the bandwidth expansion of the
+    LPC the network's input prediction uses (cached, so that
+    device_constant keeps one tensor per device)."""
+    return gamma ** np.arange(1, order + 1, dtype=np.float32)
+
+
 def _draw(noise: Noise, key: str, shape, like: torch.Tensor):
     if isinstance(noise, torch.Generator):
         return torch.randn(shape, generator=noise, dtype=torch.float32,
@@ -92,9 +103,8 @@ def forward(params, batch, cfg: LPCNetConfig, noise: Noise = None,
         rc = None
         lpc = batch["lpc"].to(torch.float32)
 
-    gamma_w = torch.as_tensor(
-        cfg.lpc_gamma ** np.arange(1, cfg.lpc_order + 1, dtype=np.float32),
-        device=sig_in.device)
+    gamma_w = device_constant(_gamma_weights(cfg.lpc_gamma, cfg.lpc_order),
+                              sig_in.device)
     tensor_preds = losses.diff_pred(sig_in, lpc * gamma_w, fs)
     real_preds = losses.diff_pred(sig_in, lpc, fs)
     past_errors = losses.l2u(sig_in - torch.roll(tensor_preds, 1, dims=1))
@@ -148,7 +158,7 @@ def clip_kernel(p: torch.Tensor, c: float) -> torch.Tensor:
     input axis (WeightClip, lpcnet.py:287-309)."""
     a = torch.abs(p)
     pair = a[0::2] + a[1::2]
-    return c * p / torch.maximum(p.new_tensor(c),
+    return c * p / torch.maximum(p.new_full((), c),
                                  pair.repeat_interleave(2, dim=0))
 
 
@@ -171,8 +181,8 @@ def make_optimizer(lr: float = 1e-3, decay: float = 5e-5, b1: float = 0.5,
     return ScheduledAdam(lr=lr, decay=decay, b1=b1, b2=b2)
 
 
-def train_step(params, opt_state, batch, cfg: LPCNetConfig,
-               opt: ScheduledAdam, noise: Noise = None):
+def _train_step(params, opt_state, batch, cfg: LPCNetConfig,
+                opt: ScheduledAdam, noise: Noise = None):
     """One step: loss and gradients, the Adam update, the weight clip.
     Returns (params, opt_state, metrics)."""
     (_, metrics), grads = value_and_grad(
@@ -181,3 +191,13 @@ def train_step(params, opt_state, batch, cfg: LPCNetConfig,
     with torch.no_grad():
         params = weight_clip(params)
     return params, opt_state, metrics
+
+
+# train_step(params, opt_state, batch, cfg, opt, noise=None), the
+# counterpart of jax.jit(train_step, static_argnames=("cfg", "opt")): cfg
+# and opt are hashable leaves of the signature, a noise generator is held
+# by identity and registered with the graph (utils/graphs.py). On the card
+# the first step of a signature runs eagerly, the second is captured, and
+# it and every later step replay the graph; on the CPU and inside
+# graphs.disabled() every step runs eagerly.
+train_step = graphs.jit(_train_step, "lpcnet_task.train_step")

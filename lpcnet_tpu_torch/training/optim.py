@@ -12,6 +12,13 @@ The schedule reads its own count before it is incremented, so the first
 step takes lr. The state holds optax's four leaf groups in its order
 (adam count, mu, nu, schedule count): state_leaves / state_from_leaves
 give the leaf list a training checkpoint stores (utils/checkpoint.py).
+
+The two counts are 0-d int32 tensors on the parameters' device, as
+optax's are arrays: the bias corrections and the step size are computed
+there, so an update reads nothing from the host and a step captured as
+a CUDA graph (utils/graphs.py) replays with the counts it is given. The
+eager call and the replay run the same operations, so they give the same
+bits.
 """
 import dataclasses
 from typing import Any, Callable, Dict, List
@@ -34,12 +41,16 @@ def tree_leaves(tree: Tree) -> List[torch.Tensor]:
 
 def tree_unflatten(template: Tree, leaves) -> Tree:
     """The nesting of template with its leaves replaced, in tree_leaves
-    order."""
+    order. Every dict keeps the template's order of keys, so that a
+    step's output has its input's structure (one graph per run,
+    utils/graphs.signature)."""
     it = iter(leaves)
 
     def build(node):
-        return {k: build(node[k]) if isinstance(node[k], dict) else next(it)
-                for k in sorted(node)}
+        out = dict.fromkeys(node)
+        for k in sorted(node):
+            out[k] = build(node[k]) if isinstance(node[k], dict) else next(it)
+        return out
 
     out = build(template)
     if next(it, None) is not None:
@@ -65,10 +76,6 @@ def value_and_grad(fn: Callable, params: Tree):
     return (value.detach(), aux), tree_unflatten(params, grads)
 
 
-def _f32(x) -> np.float32:
-    return np.float32(x)
-
-
 @dataclasses.dataclass(frozen=True)
 class ScheduledAdam:
     lr: float = 1e-3
@@ -79,29 +86,32 @@ class ScheduledAdam:
 
     def init(self, params: Tree) -> Dict[str, Any]:
         zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa
-        return {"count": 0, "mu": tree_map(zeros, params),
-                "nu": tree_map(zeros, params), "sched_count": 0}
+        count = lambda: torch.zeros((), dtype=torch.int32,  # noqa: E731
+                                    device=tree_leaves(params)[0].device)
+        return {"count": count(), "mu": tree_map(zeros, params),
+                "nu": tree_map(zeros, params), "sched_count": count()}
 
-    def step_size(self, sched_count: int) -> np.float32:
-        """-lr / (1 + decay * t) in float32, t the schedule's count."""
-        return -(_f32(self.lr) / (_f32(1.0) + _f32(self.decay)
-                                  * _f32(sched_count)))
+    def step_size(self, sched_count: torch.Tensor) -> torch.Tensor:
+        """-lr / (1 + decay * t) in float32 on t's device, t the
+        schedule's count (a true division, as optax's: `lr / x` of a
+        tensor x multiplies by its reciprocal)."""
+        t = sched_count.to(torch.float32)
+        return -(t.new_full((), self.lr) / (1.0 + self.decay * t))
 
     def update(self, grads: Tree, state: Dict[str, Any]):
         """(updates, new state) for gradients grads (no parameter is
         touched)."""
         b1, b2 = self.b1, self.b2
         n = state["count"] + 1
-        bc1 = _f32(1) - _f32(b1) ** _f32(n)
-        bc2 = _f32(1) - _f32(b2) ** _f32(n)
+        bc1 = 1.0 - torch.pow(b1, n.to(torch.float32))
+        bc2 = 1.0 - torch.pow(b2, n.to(torch.float32))
         step = self.step_size(state["sched_count"])
 
         def moments(g, m, v):
             m = (1 - b1) * g + b1 * m
             v = (1 - b2) * (g * g) + b2 * v
-            upd = (m / g.new_tensor(bc1)) / (
-                torch.sqrt(v / g.new_tensor(bc2)) + self.eps)
-            return m, v, g.new_tensor(step) * upd
+            upd = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
+            return m, v, step * upd
 
         out = [moments(g, m, v) for g, m, v in zip(
             tree_leaves(grads), tree_leaves(state["mu"]),
@@ -123,10 +133,10 @@ def state_leaves(state: Dict[str, Any]) -> List[np.ndarray]:
     """The optimizer state as optax's flat leaf list: the adam count
     (int32 scalar), every mu leaf, every nu leaf, the schedule's count."""
     arr = lambda t: t.detach().cpu().numpy()  # noqa: E731
-    return ([np.asarray(state["count"], np.int32)]
+    return ([arr(state["count"]).astype(np.int32)]
             + [arr(t) for t in tree_leaves(state["mu"])]
             + [arr(t) for t in tree_leaves(state["nu"])]
-            + [np.asarray(state["sched_count"], np.int32)])
+            + [arr(state["sched_count"]).astype(np.int32)])
 
 
 def state_from_leaves(leaves, params: Tree) -> Dict[str, Any]:
@@ -143,7 +153,11 @@ def state_from_leaves(leaves, params: Tree) -> Dict[str, Any]:
             torch.as_tensor(np.asarray(a, np.float32).reshape(p.shape),
                             device=p.device) for a, p in zip(arrs, ps)])
 
-    return {"count": int(np.asarray(leaves[0]).reshape(())),
+    def count(a):
+        return torch.as_tensor(np.asarray(a, np.int32).reshape(()),
+                               device=tree_leaves(params)[0].device)
+
+    return {"count": count(leaves[0]),
             "mu": moments(leaves[1:n + 1]),
             "nu": moments(leaves[n + 1:2 * n + 1]),
-            "sched_count": int(np.asarray(leaves[-1]).reshape(()))}
+            "sched_count": count(leaves[-1])}

@@ -15,6 +15,7 @@ from ..constants import NB_BANDS
 from ..device import refuse_tf32
 from ..models import plc as plc_model
 from ..ops import dsp, ties
+from ..utils import graphs
 from .optim import ScheduledAdam, value_and_grad
 
 
@@ -72,8 +73,14 @@ def make_optimizer(lr: float = 1e-3, decay: float = 2.5e-5) -> ScheduledAdam:
     return ScheduledAdam(lr=lr, decay=decay, b2=0.99)
 
 
-def train_step(params, opt_state, batch, cfg, opt: ScheduledAdam):
+def _train_step(params, opt_state, batch, cfg, opt: ScheduledAdam):
     (_, metrics), grads = value_and_grad(
         lambda p: loss_fn(p, batch, cfg), params)
     params, opt_state = opt.apply(params, grads, opt_state)
     return params, opt_state, metrics
+
+
+# train_step(params, opt_state, batch, cfg, opt), jax.jit's counterpart
+# with cfg and opt static (lpcnet_task.train_step says how); make_batch
+# draws the Burg dropout outside the step
+train_step = graphs.jit(_train_step, "plc_task.train_step")

@@ -15,6 +15,7 @@ from typing import Union
 import torch
 
 from ..models import rdovae as rv
+from ..utils import graphs
 from .lpcnet_task import clip_kernel
 from .optim import ScheduledAdam, value_and_grad
 
@@ -124,11 +125,19 @@ def make_optimizer(lr: float = 1e-3, decay: float = 2.5e-5) -> ScheduledAdam:
     return ScheduledAdam(lr=lr, decay=decay, b2=0.99)
 
 
-def train_step(params, opt_state, feats, quant_id, lam, noise, cfg,
-               opt: ScheduledAdam):
+def _train_step(params, opt_state, feats, quant_id, lam, noise, cfg,
+                opt: ScheduledAdam):
     (_, metrics), grads = value_and_grad(
         lambda p: loss_fn(p, feats, quant_id, lam, noise, cfg), params)
     params, opt_state = opt.apply(params, grads, opt_state)
     with torch.no_grad():
         params = weight_clip(params)
     return params, opt_state, metrics
+
+
+# train_step(params, opt_state, feats, quant_id, lam, noise, cfg, opt),
+# jax.jit's counterpart with cfg and opt static (lpcnet_task.train_step
+# says how); a noise generator is registered with the graph, so a replay
+# draws what an eager step would at that point, also after sample_lambda
+# has drawn from the same generator between steps
+train_step = graphs.jit(_train_step, "rdovae_task.train_step")

@@ -12,10 +12,15 @@ The arguments and the outputs of fn are trees of dicts, tuples and lists
 whose leaves are tensors (or other values, which are part of the
 signature and baked into the graph). The signature of a call is the tree
 with each tensor leaf's shape, dtype and device: one graph per signature,
-as JAX compiles one program per abstract signature. A replay copies the
-arguments into the graph's static inputs (contiguous tensors of those
-shapes) and returns clones of its outputs, outputs that are inputs passed
-through included, so that no result aliases the graph's memory.
+as JAX compiles one program per abstract signature. A torch.Generator
+leaf is held by identity: a CUDA one is registered with its graph, so a
+replay draws from the generator's state at that moment, what an eager
+call would draw there, and advances it by as much. fn may differentiate
+inside (torch.autograd.grad): the capture holds the backward pass too. A
+replay copies the arguments into the graph's static inputs (contiguous
+tensors of those shapes) and returns clones of its outputs, outputs that
+are inputs passed through included, so that no result aliases the
+graph's memory.
 
 The first call of a signature runs fn eagerly and is the capture's
 warm-up: a caller that makes one call of a shape (a CLI chunk, an
@@ -26,10 +31,12 @@ RuntimeError naming the entry point; nothing falls back to eager calls. A
 kernel's launch counter ticks in the eager calls and the capture, never
 in a replay. The module's `captures` and `replays` count graphs made and
 replayed per entry point's name, as kernels/sample_cuda.py counts
-launches per kernel.
+launches per kernel; a jit's clear() drops its graphs, and
+graph_nodes(graph) counts a kept graph's nodes.
 """
 import collections
 import contextlib
+import ctypes
 import inspect
 import threading
 import time
@@ -163,6 +170,20 @@ class CompiledStep:
                          [_clone(x) for x in self._out_leaves])
 
 
+def graph_nodes(graph: torch.cuda.CUDAGraph) -> int:
+    """The node count of a graph captured with keep_graph=True (the
+    driver's cuGraphGetNodes on its cudaGraph_t)."""
+    get = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes
+    get.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.POINTER(ctypes.c_size_t)]
+    get.restype = ctypes.c_int
+    n = ctypes.c_size_t(0)
+    err = get(graph.raw_cuda_graph(), None, ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"cuGraphGetNodes failed with CUresult {err}")
+    return n.value
+
+
 def _device(args, name: str) -> Optional[torch.device]:
     """The one device of args' tensor leaves (None without one); raises
     ValueError when they span more than one."""
@@ -176,16 +197,20 @@ def _device(args, name: str) -> Optional[torch.device]:
 
 def compile_step(fn: Callable, example_args: Tuple,
                  name: str = "compile_step", pool=None,
-                 warmup: int = WARMUP_CALLS) -> CompiledStep:
+                 warmup: int = WARMUP_CALLS,
+                 keep_graph: bool = False) -> CompiledStep:
     """The counterpart of jax.jit(fn) on the card for one signature: fn
     called `warmup` times on a side stream (cuBLAS handles, cuFFT plans,
     the kernels' libraries and per-device constants exist before the
     capture; 0 when the caller has called fn eagerly already), then one
     call of fn on static copies of example_args captured in a
     torch.cuda.CUDAGraph (in `pool`, a graph_pool_handle, or a pool of its
-    own). Raises RuntimeError on a device that is not CUDA (there are no
-    graphs there) and when the capture fails; it never falls back to eager
-    calls. An error of fn in a warm-up call propagates as fn raised it."""
+    own). The CUDA generators among the arguments are registered with the
+    graph (the warm-up calls draw from them as eager calls do). With
+    keep_graph the graph keeps its cudaGraph_t for graph_nodes. Raises
+    RuntimeError on a device that is not CUDA (there are no graphs there)
+    and when the capture fails; it never falls back to eager calls. An
+    error of fn in a warm-up call propagates as fn raised it."""
     example_args = tuple(example_args)
     dev = _device(example_args, name)
     if dev is None or dev.type != "cuda":
@@ -200,11 +225,16 @@ def compile_step(fn: Callable, example_args: Tuple,
             for _ in range(warmup):
                 fn(*static)
         torch.cuda.current_stream(dev).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
+    graph = torch.cuda.CUDAGraph(keep_graph=keep_graph)
+    for x in flatten(example_args)[0]:
+        if isinstance(x, torch.Generator) and x.device.type == "cuda":
+            graph.register_generator_state(x)
     t0 = time.perf_counter()
     try:
         with torch.cuda.graph(graph, pool=pool):
             out = fn(*static)
+        if keep_graph:
+            graph.instantiate()
     except Exception as e:
         raise RuntimeError(f"{name}: the call could not be captured as a "
                            f"CUDA graph: {e}") from e
@@ -224,6 +254,11 @@ class jit:
 
     def __init__(self, fn: Callable, name: str):
         self.fn, self.name = fn, name
+        self.clear()
+
+    def clear(self):
+        """Drops every graph and the pool (jax.clear_caches for this
+        entry point): the next call of any signature runs eagerly."""
         self.steps: Dict[Hashable, CompiledStep] = {}
         self._calls: Dict[Hashable, int] = {}
         self.pool = None

@@ -10,6 +10,7 @@ The sample loop's two launch plans are forced through launch_plan's input,
 the card's cluster count (sample_cuda._plan_forced): the card's own count
 gives plan L up to its boundary (8 streams per cluster), 0 gives plan T.
 """
+import contextlib
 import os
 
 import numpy as np
@@ -834,3 +835,156 @@ def test_graphed_step_fails_on_a_per_call_upload(card, monkeypatch, module):
         method(state, *args[0])
     method(state, *args[0])
     assert graphs.captures == {step.name: 1}
+
+
+def _train_run(card, name):
+    """(the jit, the initial params, the optimizer, a function of the
+    last step's params and state giving the next step's arguments, the
+    generator) of one trainer at a narrow width on the card, made anew
+    from the same seeds on every call."""
+    from lpcnet_tpu_torch import convert
+    from lpcnet_tpu_torch.models import lpcnet, plc, rdovae
+    from lpcnet_tpu_torch.training import lpcnet_task, plc_task, rdovae_task
+    rs = np.random.RandomState(0)
+    init = torch.Generator().manual_seed(0)
+    gen = torch.Generator(device=card).manual_seed(1)
+
+    def dev(x, dtype=torch.float32):
+        return torch.as_tensor(x, dtype=dtype, device=card)
+
+    if name == "lpcnet":
+        cfg = lpcnet.LPCNetConfig(gru_a_units=64, cond_size=32,
+                                  embed_sig_size=16, embed_pitch_size=8)
+        batch = {"sig_in": dev(rs.randn(2, 480) * 1000),
+                 "sig_out": dev(rs.randn(2, 480) * 1000),
+                 "features": dev(FEATS[None, :7, :20].repeat(2, 0)),
+                 "periods": dev(rs.randint(33, 255, (2, 7)), torch.int32),
+                 "lpc": dev(FEATS[None, 2:5, 20:36].repeat(2, 0))}
+        opt = lpcnet_task.make_optimizer()
+        return (lpcnet_task.train_step,
+                convert.to_device(lpcnet.init_params(init, cfg), card), opt,
+                lambda p, s: (p, s, batch, cfg, opt, gen), gen)
+    if name == "plc":
+        cfg = plc.PLCConfig()
+        feats = dev(rs.randn(2, 12, 56))
+        lost = dev(rs.uniform(size=(2, 12)) > 0.3, torch.bool)
+        opt = plc_task.make_optimizer()
+        return (plc_task.train_step,
+                convert.to_device(plc.init_params(init, cfg), card), opt,
+                lambda p, s: (p, s, plc_task.make_batch(gen, feats, lost),
+                              cfg, opt), gen)
+    cfg = rdovae.RDOVAEConfig(cond_size=32, cond_size2=32)
+    feats = dev(FEATS[:32, :20].reshape(2, 16, 20))
+    opt = rdovae_task.make_optimizer()
+
+    def args(p, s):
+        # the level drawn between steps from the step's noise generator,
+        # as train-rdovae draws it
+        q, lam = rdovae_task.sample_lambda(gen, 2, 8, device=card)
+        return (p, s, feats, q, lam, gen, cfg, opt)
+
+    params = rdovae.rate_aware_quant_init(rdovae.init_params(init, cfg), cfg)
+    return (rdovae_task.train_step, convert.to_device(params, card), opt,
+            args, gen)
+
+
+def _train_steps(card, name, n, graphed):
+    """n steps of a fresh run; (the trees each step returned, the
+    generator's state after the last)."""
+    from lpcnet_tpu_torch.utils import graphs
+    step, params, opt, args, gen = _train_run(card, name)
+    state, outs = opt.init(params), []
+    with contextlib.nullcontext() if graphed else graphs.disabled():
+        for _ in range(n):
+            params, state, metrics = step(*args(params, state))
+            outs.append((params, state, metrics))
+    return outs, gen.get_state()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["lpcnet", "plc", "rdovae"])
+def test_graphed_train_steps_bit_identical_to_eager(card, name):
+    """Each trainer's train_step, 4 steps from the same parameters,
+    optimizer state, batch and generator seed: graphed (the first step
+    eager, the second captured, it and the others replays) against
+    graphs.disabled() and two eager runs against each other. Params, Adam
+    moments, counts and metrics are bit-identical at every step, and the
+    generator (the LPCNet noise, the PLC dropout drawn between steps, the
+    RDO-VAE noise and levels) ends in the same state."""
+    from lpcnet_tpu_torch.utils import graphs
+    step = _train_run(card, name)[0]
+    step.clear()
+    eager, gen_e = _train_steps(card, name, 4, graphed=False)
+    again, gen_a = _train_steps(card, name, 4, graphed=False)
+    assert all(_tree_equal(a, b) for a, b in zip(eager, again)), \
+        f"{name}: two eager runs differ"
+    assert torch.equal(gen_e, gen_a)
+    graphs.captures.clear()
+    graphs.replays.clear()
+    graphed, gen_g = _train_steps(card, name, 4, graphed=True)
+    assert graphs.captures == {step.name: 1}
+    assert graphs.replays == {step.name: 3}
+    for k, (e, g) in enumerate(zip(eager, graphed)):
+        assert _tree_equal(e, g), f"{name}: step {k + 1}"
+        assert g[1]["count"].dtype == torch.int32 and int(g[1]["count"]) \
+            == k + 1
+    assert torch.equal(gen_e, gen_g)
+    step.clear()
+
+
+@pytest.mark.cuda
+def test_train_lpcnet_command_captures_once(card, tmp_path):
+    """train-lpcnet on the card for 2 epochs of 3 steps: one capture of
+    lpcnet_task.train_step and 5 replays (the first step eager, the
+    second captured and replayed), and its --resume continues from the
+    checkpoint."""
+    from lpcnet_tpu_torch import cli
+    from lpcnet_tpu_torch.training import lpcnet_task
+    from lpcnet_tpu_torch.utils import checkpoint, graphs
+    rs = np.random.RandomState(0)
+    f = rs.randn(100, 36).astype(np.float32) * 0.3
+    f[:, 20:] = 0.0
+    f.tofile(tmp_path / "f.f32")
+    (rs.randn(100 * 160, 2) * 500).astype(np.int16).tofile(tmp_path / "d.s16")
+    out = str(tmp_path / "run")
+    argv = ["train-lpcnet", str(tmp_path / "f.f32"), str(tmp_path / "d.s16"),
+            out, "--batch-size", "2", "--steps-per-epoch", "3",
+            "--device", str(card)]
+    name = lpcnet_task.train_step.name
+    lpcnet_task.train_step.clear()
+    graphs.captures.clear()
+    graphs.replays.clear()
+    assert cli.main(argv + ["--epochs", "2"]) == 0
+    assert graphs.captures[name] == 1 and graphs.replays[name] == 5
+    ck = os.path.join(out, "ckpt_001.bin")
+    assert checkpoint.load_training(ck)[2] == 6
+    assert cli.main(argv + ["--epochs", "1", "--resume", ck]) == 0
+    tree, leaves, step, meta = checkpoint.load_training(
+        os.path.join(out, "ckpt_002.bin"))
+    assert step == 9 and leaves[0].item() == leaves[-1].item() == 9
+    lpcnet_task.train_step.clear()
+
+
+@pytest.mark.cuda
+def test_graphed_train_step_fails_on_a_per_call_upload(card, monkeypatch):
+    """With the mu-law's log 256 uploaded in every call again (a pageable
+    copy), the LPCNet train step runs eagerly on its first call but cannot
+    be captured on its second, and raises naming itself rather than run
+    eagerly; with the constant kept on the card it captures."""
+    from lpcnet_tpu_torch.training import losses
+    from lpcnet_tpu_torch.utils import graphs
+    step, params, opt, args, _ = _train_run(card, "lpcnet")
+    step.clear()
+    graphs.captures.clear()
+    state = opt.init(params)
+    monkeypatch.setattr(losses, "device_constant",
+                        lambda a, device: torch.as_tensor(a, device=device))
+    step(*args(params, state))
+    with pytest.raises(RuntimeError, match="lpcnet_task.train_step: the call "
+                                           "could not be captured"):
+        step(*args(params, state))
+    assert not graphs.captures and step.steps == {}
+    monkeypatch.undo()
+    step(*args(params, state))
+    assert graphs.captures == {step.name: 1}
+    step.clear()

@@ -2,8 +2,9 @@
 the CPU: the signature key, the per-signature cache, disabled(), the copy
 in and clone out of a replay (through a stand-in for the CUDA graph), the
 entry points' conversion of their arguments before the graphed call, and
-that no function of the graphed paths uploads a module-level numpy
-constant per call (a CUDA graph cannot capture the upload). The captures
+that no function of the graphed paths, the training steps' included,
+uploads a numpy constant or a Python scalar per call (a CUDA graph cannot
+capture the upload). The captures
 themselves need the card: tests/test_torch_cuda.py."""
 import ast
 import importlib
@@ -341,24 +342,30 @@ def test_teacher_shapes_are_checked_before_the_graphed_call():
                                np.zeros((1, 300)), np.zeros((1, 2)))
 
 
-# the modules whose functions run inside the entry points' graphs
+# the modules whose functions run inside the entry points' and the
+# training steps' graphs
 GRAPHED_MODULES = (
     ["features", "plc", "dred", "vocoder", "kernels.sample_scan",
      "kernels.sample_cuda"]
-    + ["ops." + f[:-3] for f in sorted(os.listdir(os.path.join(PKG, "ops")))
-       if f.endswith(".py") and f != "__init__.py"]
-    + ["models." + f[:-3]
-       for f in sorted(os.listdir(os.path.join(PKG, "models")))
+    + [d + "." + f[:-3] for d in ("ops", "models", "training")
+       for f in sorted(os.listdir(os.path.join(PKG, d)))
        if f.endswith(".py") and f != "__init__.py"])
 _UPLOADS = ("as_tensor", "tensor", "from_numpy")
+# the functions of those modules that run before a step, never inside one:
+# they make parameters or a KISS99 seed, or load a checkpoint
+OUTSIDE_STEPS = {"ops.kiss99": {"to_tensor"},
+                 "models.rdovae": {"rate_aware_quant_init"},
+                 "training.optim": {"state_from_leaves"}}
 
 
 def constant_uploads(source: str, module) -> list:
-    """(function, line, name) of every call of torch.as_tensor /
-    torch.tensor / torch.from_numpy inside a function of `source` whose
-    data argument holds a module-level numpy constant of `module` (a name
-    bound to an ndarray there, or an ndarray attribute of a module bound
-    there)."""
+    """(function, line, text) of every per-call upload inside a function
+    or method of `source` (nested functions count as their outermost
+    one's): a call of torch.as_tensor / torch.tensor /
+    torch.from_numpy whose data argument holds a module-level numpy
+    constant of `module` (a name bound to an ndarray there, or an ndarray
+    attribute of a module bound there) or a numpy expression (a call of
+    np.* or numpy.*), and every call of Tensor.new_tensor."""
     consts = {n for n, v in vars(module).items() if isinstance(v, np.ndarray)}
 
     def is_const(node) -> bool:
@@ -370,14 +377,29 @@ def constant_uploads(source: str, module) -> list:
             return isinstance(getattr(owner, node.attr, None), np.ndarray)
         return False
 
+    def is_numpy_call(node) -> bool:
+        f = node.func if isinstance(node, ast.Call) else None
+        while isinstance(f, ast.Attribute):
+            f = f.value
+        return isinstance(f, ast.Name) and f.id in ("np", "numpy")
+
+    def top_functions(body):
+        for node in body:
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                yield node
+            elif isinstance(node, ast.ClassDef):
+                yield from top_functions(node.body)
+
     found = []
-    for fn in ast.walk(ast.parse(source)):
-        if not isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
-            continue
+    for fn in top_functions(ast.parse(source).body):
         for call in ast.walk(fn):
             if not (isinstance(call, ast.Call)
-                    and isinstance(call.func, ast.Attribute)
-                    and call.func.attr in _UPLOADS
+                    and isinstance(call.func, ast.Attribute)):
+                continue
+            if call.func.attr == "new_tensor":
+                found.append((fn.name, call.lineno, ast.unparse(call)))
+                continue
+            if not (call.func.attr in _UPLOADS
                     and isinstance(call.func.value, ast.Name)
                     and call.func.value.id == "torch"):
                 continue
@@ -385,37 +407,108 @@ def constant_uploads(source: str, module) -> list:
                                     if k.arg == "data"]
             for arg in data:
                 found += [(fn.name, call.lineno, ast.unparse(n))
-                          for n in ast.walk(arg) if is_const(n)]
-    return found
+                          for n in ast.walk(arg)
+                          if is_const(n) or is_numpy_call(n)]
+    return sorted(set(found), key=lambda f: f[1])
 
 
 @pytest.mark.parametrize("name", GRAPHED_MODULES)
 def test_no_function_uploads_a_numpy_constant_per_call(name):
     """Each such upload is a pageable host copy in every call, which a
     CUDA graph cannot capture: ops/tables.device_constant keeps the tensor
-    on the device instead."""
+    on the device instead, and a scalar bound is filled on the device
+    (new_full)."""
     module = importlib.import_module("lpcnet_tpu_torch." + name)
     with open(module.__file__) as fh:
-        assert constant_uploads(fh.read(), module) == []
+        found = constant_uploads(fh.read(), module)
+    assert [f for f in found
+            if f[0] not in OUTSIDE_STEPS.get(name, ())] == []
 
 
 def test_the_upload_check_finds_an_upload():
     """The check above on the forms it must catch: a constant of the
-    module, a constant of an imported module, inside an expression."""
+    module, a constant of an imported module, inside an expression, a
+    numpy expression, a new_tensor."""
     from lpcnet_tpu_torch.kernels import sample_scan
     src = ("import torch\n"
            "def f(x):\n"
            "    a = torch.as_tensor(NODE_LEVEL, device=x.device)\n"
            "    b = torch.tensor(tables.DCT_TABLE * 2)\n"
            "    c = torch.from_numpy(np.asarray(FLAT_SCORE_W))\n"
+           "    d = torch.as_tensor(0.9 ** np.arange(1, 17), device=x.device)\n"
+           "    e = x.new_tensor(0.5)\n"
            "    return torch.as_tensor(x)\n")
     module = type(sample_scan)("m")
     module.NODE_LEVEL = sample_scan.NODE_LEVEL
     module.FLAT_SCORE_W = sample_scan.FLAT_SCORE_W
     module.tables = importlib.import_module("lpcnet_tpu_torch.ops.tables")
     got = constant_uploads(src, module)
-    assert [(f, line) for f, line, _ in got] == [("f", 3), ("f", 4),
-                                                  ("f", 5)]
+    assert sorted({(f, line) for f, line, _ in got}) == [
+        ("f", 3), ("f", 4), ("f", 5), ("f", 6), ("f", 7)]
+
+
+# the training steps' per-call uploads as the port had them before its
+# steps were captured, function by function and verbatim: the widened
+# check must find each (the module, the function, its source, the lines
+# of the uploads in it)
+BEFORE_CAPTURE = [
+    ("training.optim", "update", """\
+def update(self, grads, state):
+    b1, b2 = self.b1, self.b2
+    n = state["count"] + 1
+    bc1 = _f32(1) - _f32(b1) ** _f32(n)
+    bc2 = _f32(1) - _f32(b2) ** _f32(n)
+    step = self.step_size(state["sched_count"])
+
+    def moments(g, m, v):
+        m = (1 - b1) * g + b1 * m
+        v = (1 - b2) * (g * g) + b2 * v
+        upd = (m / g.new_tensor(bc1)) / (
+            torch.sqrt(v / g.new_tensor(bc2)) + self.eps)
+        return m, v, g.new_tensor(step) * upd
+""", [11, 12, 13]),
+    ("training.lpcnet_task", "forward", """\
+def forward(params, batch, cfg, noise=None, train=True):
+    sig_in = batch["sig_in"].to(torch.float32)
+    gamma_w = torch.as_tensor(
+        cfg.lpc_gamma ** np.arange(1, cfg.lpc_order + 1, dtype=np.float32),
+        device=sig_in.device)
+""", [3]),
+    ("training.lpcnet_task", "clip_kernel", """\
+def clip_kernel(p, c):
+    a = torch.abs(p)
+    pair = a[0::2] + a[1::2]
+    return c * p / torch.maximum(p.new_tensor(c),
+                                 pair.repeat_interleave(2, dim=0))
+""", [4]),
+    ("training.losses", "l2u", """\
+def l2u(x):
+    u = torch.sign(x) * (128.0 * torch.log1p(_SCALE * ties.abs(x))
+                         / x.new_tensor(_LOG256))
+    return ties.clip(128.0 + u, 0.0, 255.0)
+""", [3]),
+    ("ops.ties", "maximum", """\
+def maximum(x, c):
+    return torch.maximum(x, x.new_tensor(c))
+""", [2]),
+    ("ops.ties", "minimum", """\
+def minimum(x, c):
+    return torch.minimum(x, x.new_tensor(c))
+""", [2]),
+]
+
+
+@pytest.mark.parametrize("case", BEFORE_CAPTURE,
+                         ids=[f"{m}.{f}" for m, f, _, _ in BEFORE_CAPTURE])
+def test_the_widened_check_finds_the_training_steps_uploads(case):
+    """On the source the port had before its training steps were
+    captured, the check finds every per-call upload of the steps: the
+    optimizer's bias corrections and step size, LPCNet's gamma weights,
+    the weight clip's bound, the mu-law's log 256 and the ties' bounds."""
+    name, fn, src, lines = case
+    module = importlib.import_module("lpcnet_tpu_torch." + name)
+    got = constant_uploads(src, module)
+    assert sorted({line for f, line, _ in got if f == fn}) == lines
 
 
 def test_reset_like_is_a_fresh_state_with_the_rng_kept():
