@@ -142,18 +142,26 @@ Phases, each fatal on failure:
                to one Synthesizer at B=1024 here. Then dryrun_training_step
                (LPCNetConfig(), B = 2 x world, T=3): the ranks' parameters
                equal exactly, the loss within 1e-5 (relative) of the
-               single-process step on the whole batch here. [dp] lines: ms
-               per frame per rank, the gather, the plan, ms per step.
+               single-process step on the whole batch here. In the NCCL
+               world each rank then runs that step DP_GRAPH_STEPS times
+               under graphs.disabled() and graphed (mesh.dp_train_step:
+               the first step eager, the second captured with both
+               all-reduces inside, the others replays), parameters, Adam
+               state, metrics and the noise generator bit-identical, one
+               capture. [dp] lines: ms per frame per rank, the gather, the
+               plan, ms per step, eager and replayed ms per DP step and
+               the capture's s.
   4i. profile - the first traces of the device's idle share:
                utils/profiling.parse_trace_utilization over one traced
                Synthesizer.synthesize frame at B=1024 and B=1 and one
                PLCEngine.step at B=1, each traced with host operators and
                with the device alone, beside the call untraced. Fails
                unless every trace holds sample-kernel events and its device
-               occupancy lies in (0, 1]. [profile] lines: occupancy, the
-               sample kernels' duty cycle, the top kernels by busy us. The
-               traced frames' K1 launches are held against the plain loop,
-               the PLC step's K3 launch in phase 5.
+               occupancy lies in (0, 1]; a trace without them is taken
+               again, TRACE_TRIES takes at most (trace_call). [profile]
+               lines: occupancy, the sample kernels' duty cycle, the top
+               kernels by busy us. The traced frames' K1 launches are held
+               against the plain loop, the PLC step's K3 launch in phase 5.
   4j. verify, bench, eval - lpcnet_tpu_torch.verify.verify_on_device():
                every kernel against its oracle at B=1024 with the JAX
                package's gate names and thresholds, the fused variants
@@ -174,8 +182,10 @@ Phases, each fatal on failure:
                at B=1 and B=8, a capture and 201 replays each) and the PLC
                stage (K3 under plan T, 1024 x 8 frames); the train stage
                captures its step once and replays it; no other stage
-               launches a sample kernel, and DRED's stage captures encode
-               and decode. The launches the card ran (the eager calls'
+               launches a sample kernel; DRED's stage captures encode
+               and decode, the features stage data.feature_step, the
+               codec stage data.encode_superframes and decode_packets.
+               The launches the card ran (the eager calls'
                and the replays') are counted beside those from the host.
                The headline's first frame and the latency stage's eager
                call at B=1 and at B=8, and the last replay of each of
@@ -207,7 +217,10 @@ Phases, each fatal on failure:
                (pcm and every state leaf). Eager calls and replays timed
                (host clock, synchronised, GRAFT_REPS each; the graph's
                replay alone by CUDA events) and each traced alone with
-               utils/profiling.trace(cpu=False), GRAFT_TRACES times: the
+               utils/profiling.trace(cpu=False), GRAFT_TRACES times
+               (trace_call: an eager take must add one launch to the
+               counts, and a take without the sample kernel is taken
+               again, TRACE_TRIES takes at most): the
                median device occupancy and busy us side by side, and the
                replay's busy us over the graph alone's CUDA-event time.
                Then graft_entry.dryrun_multichip
@@ -230,12 +243,23 @@ Phases, each fatal on failure:
                capturing call's s and the capture alone, eager and
                replayed ms per call (host clock, synchronised, median of
                5), captures and replays, memory before and peak; the PLC
-               step at B=1 beside its 10-ms limit. synthesize_temperature
-               stays eager: one call at B=1 x 1 frame and what a capture
-               of its body would take. One-shot callers (a CLI chunk of 64
-               frames, eval_lpcnet's 200): a fresh synthesizer's first
-               three calls of one shape beside one eager call. One frame
-               per call at B=1 and B=8, eager and replayed (median of 20).
+               step at B=1 beside its 10-ms limit.
+               synthesize_temperature at B=1 and B=1024, TEMP_CALLS calls
+               of 1 frame eager and graphed (its conditioning jit, its
+               sample step captured once and replayed 160 times a frame),
+               bit-identical; ms per frame eager and graphed, the step's
+               capture s. The other jit sites at their callers' sizes
+               (jit_site_cases: the feature step of the bench, the encode
+               command and dump-data test, the four codec steps, Burg of
+               a chunk, the Lloyd pass and kmeans_multi's update at the
+               codebooks' sizes, fit_pade's step, train_codebooks'
+               feats_of, eval_plc's forward), JIT_SITE_CALLS calls eager
+               and graphed, bit-identical (the k-means generator too);
+               eager and replayed ms per call and the capture s. One-shot
+               callers (a CLI chunk of 64 frames, eval_lpcnet's 200): a
+               fresh synthesizer's first three calls of one shape beside
+               one eager call. One frame per call at B=1 and B=8, eager
+               and replayed (median of 20).
   5. holds   - for every distinct (kernel, argument set, nsamples, batch)
                that phases 3 to 4d, 4i and the bench of 4j launched, the
                arguments of its last launch in the run go through the
@@ -340,11 +364,13 @@ RDOVAE_SEQ, RDOVAE_BATCH = 400, 8
 # phase 4h: streams and frames of stream-parallel synthesis, frames of the
 # dry-run training step, each spawned world's time limit (s)
 DP_BATCH, DP_FRAMES, DP_TRAIN_FRAMES, DP_TIMEOUT = 1024, 4, 3, 300
+DP_GRAPH_STEPS = 4     # steps of the NCCL world's graphed and eager runs
 PROFILE_BATCHES = (1024, 1)   # phase 4i: streams of the traced frames
 # phase 4k: streams of the graft entry's step (its default first), the
 # timed eager calls and replays of each, and the traced calls of each whose
 # median occupancy is reported
 GRAFT_BATCHES, GRAFT_REPS, GRAFT_TRACES = (32, 1), 100, 3
+TRACE_TRIES = 3               # phases 4i, 4k: takes of a trace, at most
 # phase 4l: streams of the graphed chains; calls per chain and frames per
 # call (synthesis), steps (the PLC engines), frames per call (DRED: 16
 # dframes, one payload); the timed calls of each; the plain-loop entry
@@ -353,6 +379,10 @@ GRAPH_BATCHES = (1, 1024)
 GRAPH_CALLS, GRAPH_FRAMES, GRAPH_STEPS, DRED_GRAPH_FRAMES = 3, 4, 4, 64
 GRAPH_REPS = 5       # 10 took the phase past 60 s
 GRAPH_PLAIN_CALLS, GRAPH_PLAIN_REPS = 2, 1
+# temperature synthesis: calls of one frame per batch; the other jit sites:
+# calls per chain, and the corpus rows of the k-means passes
+TEMP_CALLS = 2
+JIT_SITE_CALLS, VQ_ROWS = 4, 32768
 # one-shot callers: a CLI chunk (cli.CHUNK_FRAMES) and eval_lpcnet's call on
 # the 200 frames of the golden features
 ONE_SHOT_FRAMES = (64, 200)
@@ -2306,11 +2336,65 @@ def dp_rank(rank, world, device, batch, frames) -> dict:
     part of dryrun_training_step. The rank's synthesis runs eagerly
     (graphs.disabled()), as main's phases do: it counts launches per call."""
     import torch
+    import torch.distributed as dist
     from lpcnet_tpu_torch.utils import graphs
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     with graphs.disabled():
-        return _dp_rank(rank, world, device, batch, frames)
+        out = _dp_rank(rank, world, device, batch, frames)
+    if dist.get_backend() == "nccl":
+        out["graph"] = dp_graph_rank(rank, world, device)
+    return out
+
+
+def dp_graph_rank(rank, world, device) -> dict:
+    """This rank's dry-run training step (LPCNetConfig(), its rows of a
+    batch of 2 x world, DP_TRAIN_FRAMES frames) for DP_GRAPH_STEPS steps
+    from the same parameters and noise seed, under graphs.disabled() and
+    graphed (mesh.dp_train_step: the first step eager, the second captured
+    with both all-reduces inside, the others replays): whether every
+    step's parameters, Adam state and metrics and the generator's final
+    state are bit-identical, the captures and replays, and the eager and
+    replayed ms per step (host clock, synchronised; the median of the
+    eager steps after the first and of the replays) and the capture's s."""
+    import torch
+    from lpcnet_tpu_torch.parallel import mesh
+    from lpcnet_tpu_torch.utils import graphs
+    cfg, params, opt, _, _ = mesh.dryrun_setup(device)
+    params = mesh.replicate(params)
+    local = {k: torch.as_tensor(v, device=device) for k, v in
+             mesh.shard_batch(mesh.dryrun_batch(2 * world, DP_TRAIN_FRAMES,
+                                                cfg), rank, world).items()}
+
+    def run():
+        gen = torch.Generator(device=device).manual_seed(1)
+        p, st, outs, ms = params, opt.init(params), [], []
+        for _ in range(DP_GRAPH_STEPS):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            p, st, m = mesh.dp_train_step(p, st, local, cfg, opt, gen)
+            torch.cuda.synchronize(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            outs.append((p, st, m))
+        return outs, gen.get_state(), ms
+
+    mesh._dp_step.clear()
+    with graphs.disabled():
+        eager, gen_e, ms_e = run()
+    graphs.captures.clear()
+    graphs.replays.clear()
+    graphed, gen_g, ms_g = run()
+    same = torch.equal(gen_e, gen_g) and all(
+        _same_tree(e, g) for e, g in zip(eager, graphed))
+    out = {"same": same, "captures": dict(graphs.captures),
+           "replays": dict(graphs.replays),
+           "eager_ms": float(np.median(ms_e[1:])),
+           "replay_ms": float(np.median(ms_g[2:])),
+           "capture_call_s": ms_g[1] / 1e3,
+           "capture_s": next(iter(mesh._dp_step.steps.values())).capture_s,
+           "loss": float(graphed[-1][2]["loss"])}
+    mesh._dp_step.clear()
+    return out
 
 
 def _dp_rank(rank, world, device, batch, frames) -> dict:
@@ -2463,10 +2547,71 @@ def dp_phase(dev, card, params, edge) -> dict:
         if not (equal and rel <= 1e-5):
             raise RuntimeError(f"dp: {tag}: the training step's ranks differ"
                                f" or its loss is off")
+        for r, o in enumerate(res):
+            g = o.get("graph")
+            if backend != "nccl":
+                if g is not None:
+                    raise RuntimeError(f"dp: {tag}: a gloo rank graphed its "
+                                       f"step")
+                continue
+            want = ({"mesh.dp_train_step": 1},
+                    {"mesh.dp_train_step": DP_GRAPH_STEPS - 1})
+            print(f"[dp] graphed dp_train_step, {tag}, rank {r}: "
+                  f"{DP_GRAPH_STEPS} steps (LPCNetConfig(), B={B}, "
+                  f"T={DP_TRAIN_FRAMES}) bit-identical to the eager steps "
+                  f"(parameters, Adam state, metrics, the noise generator) "
+                  f"{g['same']}; captures {g['captures']}, replays "
+                  f"{g['replays']}; eager {g['eager_ms']:.1f} ms, replay "
+                  f"{g['replay_ms']:.1f} ms per step "
+                  f"({g['eager_ms'] / g['replay_ms']:.2f}x; host clock, "
+                  f"synchronised), the capturing step {g['capture_call_s']:.3f}"
+                  f" s (the capture {g['capture_s']:.3f} s); loss "
+                  f"{g['loss']:.7f} [{card}]")
+            if not g["same"] or (g["captures"], g["replays"]) != want:
+                raise RuntimeError(f"dp: {tag} rank {r}: the graphed step "
+                                   f"is not the eager one, or it captured "
+                                   f"other than once")
         out[backend] = {
             "launches": sum(o["launches"]["flat"] for o in res),
             "max_abs_err": max(o["hold"]["max_abs_err"] for o in res)}
     return out
+
+
+def trace_call(d: str, call, what: str, cpu: bool = True,
+               launches=None, expect=None) -> dict:
+    """utils/profiling.trace(cpu=cpu) around one call into d, and
+    parse_trace_utilization over it. A trace that holds no sample-kernel
+    event is printed with what it did hold and taken again, into d/1,
+    d/2, at most TRACE_TRIES takes in all: the profiler has returned a
+    trace of an eager graft call without its kernel's record, once in
+    about 8 whole runs of this script. launches, where given, returns
+    the wrappers' summed launch count, and each take must add expect to
+    it: the call did launch its kernel, whatever its trace holds. Returns
+    the utilization with "takes" added, and what the last take's call
+    returned; raises RuntimeError naming what when no take holds a sample
+    kernel."""
+    from lpcnet_tpu_torch.utils import profiling
+    for take in range(TRACE_TRIES):
+        dd = os.path.join(d, str(take)) if take else d
+        n0 = launches() if launches else None
+        with profiling.trace(dd, cpu=cpu):
+            out = call()
+        if launches and launches() - n0 != expect:
+            raise RuntimeError(f"{what}: the traced call launched "
+                               f"{launches() - n0} sample kernels, not "
+                               f"{expect}")
+        u = profiling.parse_trace_utilization(dd)
+        if u is not None and u["duty_cycle"] > 0:
+            return {**u, "takes": take + 1}, out
+        held = ("no device event" if u is None else
+                f"{len(u['busy_us_by_class'])} kernel names "
+                f"{list(u['busy_us_by_class'])[:3]}, no sample kernel")
+        print(f"[trace] {what}: take {take + 1} of {TRACE_TRIES} holds "
+              f"{held}"
+              + (f"; the call launched {expect} sample kernels by the "
+                 f"wrappers' counts" if launches else ""))
+    raise RuntimeError(f"{what}: none of {TRACE_TRIES} traces holds a "
+                       f"sample kernel")
 
 
 def _short(name: str) -> str:
@@ -2488,7 +2633,6 @@ def profile_phase(dev, card, params, eng_b1) -> None:
     import tempfile
     import torch
     from lpcnet_tpu_torch.kernels import sample_cuda, sample_scan
-    from lpcnet_tpu_torch.utils import profiling
     from lpcnet_tpu_torch.vocoder import Synthesizer
     v = Synthesizer(params=params, device=dev)
     cases = []
@@ -2507,11 +2651,7 @@ def profile_phase(dev, card, params, eng_b1) -> None:
             wall = host_ms(fn, 3)
             for cpu in (True, False):
                 d = os.path.join(tmp, f"{i}{'hd' if cpu else 'd'}")
-                with profiling.trace(d, cpu=cpu):
-                    out = fn()
-                u = profiling.parse_trace_utilization(d)
-                if u is None:
-                    raise RuntimeError(f"profile: {what}: no device event")
+                u, out = trace_call(d, fn, f"profile: {what}", cpu=cpu)
                 top = ", ".join(f"{_short(k)} {t:.1f}" for k, t in
                                 list(u["busy_us_by_class"].items())[:3])
                 print(f"[profile] {what}, trace of "
@@ -2578,7 +2718,7 @@ def bench_phase(dev, card, report, zero_counts) -> dict:
     import contextlib
     import io
     import torch
-    from lpcnet_tpu_torch import bench
+    from lpcnet_tpu_torch import bench, data
     from lpcnet_tpu_torch.kernels import sample_cuda, sample_scan
     from lpcnet_tpu_torch.training import lpcnet_task
     from lpcnet_tpu_torch.utils import graphs
@@ -2621,6 +2761,7 @@ def bench_phase(dev, card, report, zero_counts) -> dict:
 
     buf = io.StringIO()
     t0 = time.perf_counter()
+    data.feature_step(False).clear()    # its stage's calls start afresh
     try:
         sample_cuda.synthesize_frames = frames
         with contextlib.redirect_stdout(buf):
@@ -2685,9 +2826,18 @@ def bench_phase(dev, card, report, zero_counts) -> dict:
     # the train stage's step: an eager call, a capture, BENCH_ITERS replays
     expect("bench_train", "flat", 0, "T", graphed={
         "lpcnet_task.train_step": (1, BENCH_ITERS + 1)})
+    # the feature and codec steps (data.py): their input features are one
+    # eager compute_features call; encode's one more call makes decode's
+    # input
+    expect("bench_features", "flat", 0, "T", graphed={
+        data.feature_step(False).name: (1, BENCH_ITERS + 1)})
+    expect("bench_codec", "flat", 0, "T", graphed={
+        "data.encode_superframes": (1, BENCH_ITERS + 2),
+        "data.decode_packets": (1, BENCH_ITERS + 1)})
     for stage in counts:
         if stage not in ("bench_synthesis", "bench_latency", "bench_plc",
-                         "bench_dred", "bench_train"):
+                         "bench_dred", "bench_train", "bench_features",
+                         "bench_codec"):
             expect(stage, "flat", 0, "T", graphed={})
 
     def host_and_device(stage, B, replays):
@@ -2804,7 +2954,6 @@ def graft_phase(dev, card, zero_counts, edge) -> dict:
     import torch
     from lpcnet_tpu_torch import graft_entry
     from lpcnet_tpu_torch.kernels import sample_cuda, sample_scan
-    from lpcnet_tpu_torch.utils import profiling
     from lpcnet_tpu_torch.vocoder import Synthesizer
     golden = np.fromfile(FEATS, np.float32).reshape(-1, 36)
     v = Synthesizer(device=dev)          # the entry's weights, for the holds
@@ -2869,20 +3018,20 @@ def graft_phase(dev, card, zero_counts, edge) -> dict:
         # each call traced alone GRAFT_TRACES times: a traced replay's span
         # stretches to 1.0-2.9x the graph's untraced time, by an amount that
         # differs between processes, while its busy time stays put
-        occ, spread = {}, {}
+        occ, spread, takes = {}, {}, 0
+
+        def launched():
+            return sum(sample_cuda.launches.values())
+
         with tempfile.TemporaryDirectory() as tmp:
             for what, call in (("eager", lambda: fn(*args)),
                                ("replay", lambda: step(*args))):
-                us = []
-                for i in range(GRAFT_TRACES):
-                    d = os.path.join(tmp, f"{what}{i}")
-                    with profiling.trace(d, cpu=False):
-                        call()
-                    u = profiling.parse_trace_utilization(d)
-                    if u is None or not u["duty_cycle"] > 0:
-                        raise RuntimeError(f"graft: {tag}: the {what} "
-                                           f"trace holds no sample kernel")
-                    us.append(u)
+                us = [trace_call(os.path.join(tmp, f"{what}{i}"), call,
+                                 f"graft: {tag}: the {what} call", cpu=False,
+                                 launches=launched,
+                                 expect=1 if what == "eager" else 0)[0]
+                      for i in range(GRAFT_TRACES)]
+                takes += sum(u["takes"] for u in us)
                 us.sort(key=lambda u: u["device_occupancy"])
                 occ[what] = us[len(us) // 2]
                 spread[what] = (us[0]["device_occupancy"],
@@ -2910,7 +3059,8 @@ def graft_phase(dev, card, zero_counts, edge) -> dict:
               f"{occ['replay']['span_us']:.1f} us, {busy_share:.4f} of the "
               f"graph alone; sample-kernel duty cycle "
               f"{occ['eager']['duty_cycle']:.4f} and "
-              f"{occ['replay']['duty_cycle']:.4f} [{card}]")
+              f"{occ['replay']['duty_cycle']:.4f}; {takes} takes for "
+              f"{2 * GRAFT_TRACES} traces [{card}]")
     n = torch.cuda.device_count()
     t0 = time.perf_counter()
     res = graft_entry.dryrun_multichip(n)
@@ -2949,6 +3099,23 @@ def _median_call_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
         ts.append((time.perf_counter() - t0) * 1e3)
     return float(np.median(ts))
+
+
+def call_chain(method, state, calls, ms=None):
+    """The calls in order, each on the state the last one left (state
+    None: a stateless entry point); ms: a list that gets each call's ms
+    (host clock, synchronised)."""
+    import torch
+    outs = []
+    for a in calls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(method(*a) if state is None else method(state, *a))
+        state = None if state is None else outs[-1][0]
+        torch.cuda.synchronize()
+        if ms is not None:
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return outs
 
 
 def graph_cases(dev, params, plc_params, dred):
@@ -3070,8 +3237,8 @@ def graphs_phase(dev, card, params, plc_params, zero_counts) -> dict:
     GRAPH_REPS calls; for the plain loops, which take seconds per eager
     call, the eager chain's calls and GRAPH_PLAIN_REPS replays), the
     capture alone (CompiledStep.capture_s) and the peak memory. Then
-    synthesize_temperature, which stays eager: one call, and what a
-    capture of it would take (compile_step on its body). Then one-shot
+    synthesize_temperature (temperature_lines) and the other jit sites
+    (jit_site_lines). Then one-shot
     callers: a fresh synthesizer's first, second and third call at B=1 x
     ONE_SHOT_FRAMES frames beside one eager call. Then one frame per call
     at B=1 and B=8, eager and replayed. Raises RuntimeError on a failed
@@ -3086,20 +3253,7 @@ def graphs_phase(dev, card, params, plc_params, zero_counts) -> dict:
     w = graphs.CAPTURE_CALL
     out = {}
 
-    def chain(method, state, calls, ms=None):
-        """The calls in order, each on the state the last one left (state
-        None: a stateless entry point); ms: a list that gets each call's ms
-        (host clock, synchronised)."""
-        outs = []
-        for a in calls:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            outs.append(method(*a) if state is None else method(state, *a))
-            state = None if state is None else outs[-1][0]
-            torch.cuda.synchronize()
-            if ms is not None:
-                ms.append((time.perf_counter() - t0) * 1e3)
-        return outs
+    chain = call_chain
 
     for name, what, B, plain, make in graph_cases(dev, params, plc_params,
                                                   dred):
@@ -3177,34 +3331,12 @@ def graphs_phase(dev, card, params, plc_params, zero_counts) -> dict:
                                f"launches are not as expected")
         del obj, step, method, eager, graphed
 
-    # synthesize_temperature stays eager: one call, then what a capture of
-    # its body would take, and that replay against the eager call
-    name = "Synthesizer.synthesize_temperature"
-    v = Synthesizer(params=params, device=dev)
-    f = torch.as_tensor(tiled_features(1, 1), device=dev)
-    st = v.reset(1, per_stream_rng=True)
-    zero_counts()
-    ms = []
-    (st_e, pcm_e), = chain(v.synthesize_temperature, st, [(f,)], ms)
-    eager_only = not graphs.captures and not graphs.replays
-    t0 = time.perf_counter()
-    cs = graphs.compile_step(v._synthesize_temperature, (st, f), name,
-                             warmup=0)
-    capture_s = time.perf_counter() - t0
-    replay_ms = []
-    (st_r, pcm_r), = chain(cs, None, [(st, f)], replay_ms)
-    same = _same_tree((st_e, pcm_e), (st_r, pcm_r))
-    out[(name, "eager", 1)] = {"eager_ms": ms[0], "capture_s": capture_s,
-                               "replay_ms": replay_ms[0], "same": same}
-    print(f"[graphs] {name} B=1 x 1 frame: runs eagerly (no graph made or "
-          f"replayed {eager_only}), {ms[0]:.1f} ms; a capture of its body "
-          f"would take {capture_s:.3f} s (instantiation included), its "
-          f"replay {replay_ms[0]:.1f} ms, bit-identical to the eager call "
-          f"{same} [{card}]")
-    if not (eager_only and same):
-        raise RuntimeError(f"graphs: {name}: made a graph, or its capture "
-                           f"disagrees with the eager call")
-    del v, cs
+    # synthesize_temperature: its conditioning jit and its sample step
+    # captured once per batch size and replayed FS times per frame
+    out.update(temperature_lines(dev, card, params))
+    # the other jit sites: the feature, codec and Burg steps, the k-means
+    # updates and the tools' steps
+    out.update(jit_site_lines(dev, card))
 
     # one-shot callers: a CLI chunk (cli.CHUNK_FRAMES) and eval_lpcnet's
     # one call on the golden features
@@ -3269,6 +3401,233 @@ def graphs_phase(dev, card, params, plc_params, zero_counts) -> dict:
         del v
     print(f"[graphs] {len(out)} lines in "
           f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return out
+
+
+def temperature_lines(dev, card, params) -> dict:
+    """Synthesizer.synthesize_temperature at each of GRAPH_BATCHES:
+    TEMP_CALLS calls of one frame that carry the state under
+    graphs.disabled(), then the same graphed (the conditioning a jit, the
+    sample step a graphs.loop_step: the first step eager, the second
+    captured, every later one a replay), pcm and every state leaf
+    bit-identical; ms per frame eager (the median of the eager calls) and
+    graphed (the median of the calls after the first, all replays), the
+    step's capture s. Raises RuntimeError on a failed check."""
+    import torch
+    from lpcnet_tpu_torch.utils import graphs
+    from lpcnet_tpu_torch.vocoder import Synthesizer
+    name = "Synthesizer.synthesize_temperature"
+    out = {}
+    for B in GRAPH_BATCHES:
+        v = Synthesizer(params=params, device=dev)
+        feats = torch.as_tensor(tiled_features(B, TEMP_CALLS), device=dev)
+        calls = [(feats[:, i:i + 1],) for i in range(TEMP_CALLS)]
+        st = v.reset(B, per_stream_rng=True)
+        eager_ms, graphed_ms = [], []
+        with graphs.disabled():
+            eager = call_chain(v.synthesize_temperature, st, calls,
+                               eager_ms)
+        v = Synthesizer(params=params, device=dev)
+        graphs.captures.clear()
+        graphs.replays.clear()
+        graphed = call_chain(v.synthesize_temperature, st, calls,
+                             graphed_ms)
+        same = all(_same_tree(e, g) for e, g in zip(eager, graphed))
+        got = (dict(graphs.captures), dict(graphs.replays))
+        want = ({name + ".conditions": 1, name + ".sample_step": 1},
+                {name + ".conditions": TEMP_CALLS - 1,
+                 name + ".sample_step": TEMP_CALLS * FS - 1})
+        step = v._temp_steps[B]
+        line = {"eager_ms_per_frame": float(np.median(eager_ms)),
+                "graphed_ms_per_frame": float(np.median(graphed_ms[1:])),
+                "first_call_ms": graphed_ms[0],
+                "capture_s": step.capture_s, "same": same}
+        out[(name, "graphed", B)] = line
+        print(f"[graphs] {name} B={B} x {TEMP_CALLS} calls of 1 frame "
+              f"carrying the state: bit-identical to the eager chain {same}; "
+              f"eager {line['eager_ms_per_frame']:.1f} ms per frame, graphed "
+              f"{line['graphed_ms_per_frame']:.2f} ms per frame "
+              f"({np.median(eager_ms) / np.median(graphed_ms[1:]):.2f}x; "
+              f"{FS} replays of the sample step a frame; host clock, "
+              f"synchronised, median of {TEMP_CALLS} and "
+              f"{TEMP_CALLS - 1} calls); the first call "
+              f"{graphed_ms[0]:.1f} ms (an eager step, the step's capture "
+              f"{step.capture_s:.3f} s, {FS - 2} replays); (captures, "
+              f"replays) {got} [{card}]")
+        if not same or got != want:
+            raise RuntimeError(f"graphs: {name} B={B}: the graphed chain is "
+                               f"not the eager one, or {got} is not {want}")
+        del v, eager, graphed
+    return out
+
+
+def jit_site_cases(dev):
+    """The other jit sites of phase 4l at the sizes their callers give
+    them, each as (name, what, make): make() gives (the jit, the calls'
+    arguments, carry(args, out) giving the next call's arguments from the
+    last one's and its output or None, the generator or None)."""
+    import torch
+    from lpcnet_tpu_torch import data
+    from lpcnet_tpu_torch import features as F
+    from lpcnet_tpu_torch.cli import load_codebooks
+    from lpcnet_tpu_torch.codec import codec, vq_train
+    from lpcnet_tpu_torch.tools import eval_plc, fit_pade, train_codebooks
+    from lpcnet_tpu_torch.training.optim import ScheduledAdam
+    n = JIT_SITE_CALLS
+    rs = np.random.RandomState(11)
+
+    def dev_(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    def pcm(B, frames):
+        return dev_(rs.randn(B, frames * FS) * 3000)
+
+    cases = []
+    # (quantize, mode, streams, frames): the bench's features stage, the
+    # encode command's chunk, dump-data test/btest's chunk
+    for q, mode, B, T in ((False, "superframe", 128, 64),
+                          (True, "superframe", 1, 64),
+                          (False, "single", 1, 64)):
+        def make(q=q, mode=mode, B=B, T=T):
+            step = data.feature_step(q, mode)
+            x = pcm(B, n * T)
+            args = [(F.init_state(B, dev), x[:, i * T * FS:(i + 1) * T * FS])
+                    for i in range(n)]
+            return step, args, lambda a, o: (o[0], a[1]), None
+        cases.append((data.feature_step(q, mode).name, f"B={B} x {T} frames",
+                      make))
+    cbs = load_codebooks(None, dev)
+    # (kind, streams, superframes per call): the bench's codec stage,
+    # train_codebooks' codec_rms
+    for kind, B, S in (("encode_superframes", 128, 16),
+                       ("decode_packets", 128, 16),
+                       ("encode_superframe", 1, 1), ("decode_packet", 1, 1)):
+        def make(kind=kind, B=B, S=S):
+            step = data.codec_step(kind, cbs)
+            _, f, sps = F.compute_features(F.init_state(B, dev),
+                                           pcm(B, n * 4 * S),
+                                           quantize_pitch=True)
+            mem = torch.zeros((B, 18), device=dev)
+            bufs = codec.encode_superframes(cbs, f, mem, sps)[0]
+            args = []
+            for i in range(n):
+                sl = slice(i * S, (i + 1) * S)
+                if kind == "encode_superframes":
+                    args.append((f[:, 4 * sl.start:4 * sl.stop], mem,
+                                 sps[sl]))
+                elif kind == "encode_superframe":
+                    args.append((f[:, 4 * i:4 * i + 4], mem, sps[i]))
+                else:
+                    args.append((bufs[:, sl] if S > 1 else bufs[:, i], mem))
+            # vq_mem, the second argument, is the last call's last output
+            return step, args, lambda a, o: a[:1] + (o[-1],) + a[2:], None
+        cases.append((f"data.{kind}", f"B={B} x {S} superframes", make))
+
+    def make_burg():
+        frames = dev_(rs.randn(n, CHUNK_FRAMES, FS) * 3000)
+        return data.burg_step, [(frames[i],) for i in range(n)], None, None
+    cases.append(("data.burg_step", f"{CHUNK_FRAMES} frames", make_burg))
+    # a pass at the codebooks' full sizes over a corpus of VQ_ROWS rows
+    for multi, K in ((False, 1024), (True, 4096)):
+        def make_vq(multi=multi, K=K):
+            gen = torch.Generator(device=dev).manual_seed(0)
+            x = dev_(rs.randn(*((VQ_ROWS, 4, 18) if multi
+                                else (VQ_ROWS, 17))))
+            cb = dev_(rs.randn(K, 18 if multi else 17))
+            step = vq_train.multi_update if multi else vq_train.lloyd
+            a0 = (cb, gen, x, True) if multi else (cb, gen, x)
+            return step, [a0] * n, lambda a, o: (o,) + a[1:], gen
+        cases.append(("vq_train.kmeans_multi.upd" if multi else
+                      "vq_train.lloyd", f"{VQ_ROWS} rows, K={K}", make_vq))
+
+    def make_pade():
+        x, y, basis = fit_pade.grid(dev)
+        p = fit_pade.seed_params(dev)
+        opt = ScheduledAdam(lr=0.05, b1=0.9, b2=0.9)
+        a0 = (p, opt.init(p), x, y, basis, 1.0, 0.0, opt)
+        return fit_pade.fit_step, [a0] * n, lambda a, o: o + a[2:], None
+    cases.append(("fit_pade.step", "the 2000-point grid", make_pade))
+
+    def make_feats_of():
+        x = pcm(16 * n, 200)
+        return (train_codebooks.feats_of,
+                [(x[16 * i:16 * (i + 1)],) for i in range(n)], None, None)
+    cases.append(("train_codebooks.feats_of", "16 passes x 200 frames",
+                  make_feats_of))
+
+    def make_plc():
+        from lpcnet_tpu_torch import convert
+        p = convert.load_plc(device=dev)
+        xs = dev_(rs.randn(n, 1, 200, 57) * 0.5)
+        return eval_plc.forward, [(p, xs[i]) for i in range(n)], None, None
+    cases.append(("eval_plc.forward", "B=1 x 200 frames", make_plc))
+    return cases
+
+
+def jit_site_lines(dev, card) -> dict:
+    """Each case of jit_site_cases: JIT_SITE_CALLS calls under
+    graphs.disabled(), each on what the last one left where the site
+    carries a state, then the same chain graphed (the first call eager,
+    the second captured, the others replays): every output, and the
+    generator's final state, bit-identical; eager and replayed ms per call
+    (host clock, synchronised; the median of the eager calls after the
+    first and of the replays after the capture) and the capture's s.
+    Raises RuntimeError on a failed check."""
+    import torch
+    from lpcnet_tpu_torch.utils import graphs
+    out = {}
+    for name, what, make in jit_site_cases(dev):
+        step, args, carry, gen = make()
+        step.clear()
+
+        def run(ms):
+            g0 = None if gen is None else gen.get_state()
+            outs = []
+            for i, a in enumerate(args):
+                if i and carry is not None:
+                    a = carry(a, outs[-1])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs.append(step(*a))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            g1 = None if gen is None else gen.get_state()
+            if gen is not None:
+                gen.set_state(g0)
+            return outs, g1
+
+        eager_ms, graphed_ms = [], []
+        with graphs.disabled():
+            eager, gen_e = run(eager_ms)
+        graphs.captures.clear()
+        graphs.replays.clear()
+        graphed, gen_g = run(graphed_ms)
+        same = all(_same_tree(e, g) for e, g in zip(eager, graphed)) and (
+            gen is None or torch.equal(gen_e, gen_g))
+        got = (dict(graphs.captures), dict(graphs.replays))
+        want = ({name: 1}, {name: len(args) - 1})
+        line = {"eager_ms": float(np.median(eager_ms[1:])),
+                "replay_ms": float(np.median(graphed_ms[2:])),
+                "capture_call_s": graphed_ms[1] / 1e3,
+                "capture_s": next(iter(step.steps.values())).capture_s,
+                "same": same}
+        out[(name, what, 0)] = line
+        print(f"[graphs] {name} {what} x {len(args)} calls"
+              f"{'' if carry is None else ' carrying the state'}: "
+              f"bit-identical to the eager chain"
+              f"{'' if gen is None else ' (the generator included)'} "
+              f"{same}; eager {line['eager_ms']:.4f} ms, replay "
+              f"{line['replay_ms']:.4f} ms per call "
+              f"({line['eager_ms'] / line['replay_ms']:.2f}x; host clock, "
+              f"synchronised, median of {len(args) - 1} and "
+              f"{len(args) - 2}); the capturing call "
+              f"{line['capture_call_s']:.3f} s (the capture "
+              f"{line['capture_s']:.3f} s); (captures, replays) {got} "
+              f"[{card}]")
+        if not same or got != want:
+            raise RuntimeError(f"graphs: {name} {what}: the graphed chain is "
+                               f"not the eager one, or {got} is not {want}")
+        step.clear()
     return out
 
 

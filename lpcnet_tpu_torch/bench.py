@@ -136,32 +136,41 @@ def _pcm(rs: np.random.RandomState, batch: int, n: int, device):
 
 @torch.no_grad()
 def bench_features(batch=128, frames=64, iters=5, device=None):
+    """The feature step (data.feature_step, bench.py:93's jitted
+    compute_features): its warm-up calls capture it, the timed calls
+    replay it."""
     from . import features as F
+    from .data import feature_step
     dev = resolve_device(device)
     pcm = _pcm(np.random.RandomState(1), batch, frames * FRAME_SIZE, dev)
     state = F.init_state(batch, dev)
-    dt = _timeit(lambda: F.compute_features(state, pcm), iters, dev)
+    step = feature_step(False)
+    dt = _timeit(lambda: step(state, pcm), iters, dev)
     return _rt("features_rt_factor", batch * frames * FRAME_SIZE / 16000.0,
                dt, {"batch": batch})
 
 
 @torch.no_grad()
 def bench_codec(batch=128, n_sf=16, iters=5, device=None):
+    """The encode and decode steps (data.codec_step, bench.py:122-125's
+    jitted encode_superframes and decode_packets), each captured in its
+    warm-up calls and replayed in the timed ones; the input features are
+    one eager call, as bench.py's one call of its jitted feature step."""
     from . import features as F
     from .cli import load_codebooks
-    from .codec import codec
+    from .data import codec_step
     dev = resolve_device(device)
     cbs = load_codebooks(None, dev)     # shipped, else random placeholders
     pcm = _pcm(np.random.RandomState(2), batch, n_sf * 4 * FRAME_SIZE, dev)
     _, feats, sps = F.compute_features(F.init_state(batch, dev), pcm,
                                        quantize_pitch=True)
     vq_mem = torch.zeros((batch, NB_BANDS), device=dev)
-    dt_enc = _timeit(lambda: codec.encode_superframes(cbs, feats, vq_mem,
-                                                      sps), iters, dev)
-    bufs = codec.encode_superframes(cbs, feats, vq_mem, sps)[0]
-    dt_dec = _timeit(lambda: codec.decode_packets(cbs, bufs,
-                                                  torch.zeros_like(vq_mem)),
-                     iters, dev)
+    enc = codec_step("encode_superframes", cbs)
+    dec = codec_step("decode_packets", cbs)
+    dt_enc = _timeit(lambda: enc(feats, vq_mem, sps), iters, dev)
+    bufs = enc(feats, vq_mem, sps)[0]
+    dt_dec = _timeit(lambda: dec(bufs, torch.zeros_like(vq_mem)), iters,
+                     dev)
     audio = batch * n_sf * 4 * FRAME_SIZE / 16000.0
     return [_rt("encode_rt_factor", audio, dt_enc, {"batch": batch}),
             _rt("decode_feat_rt_factor", audio, dt_dec, {"batch": batch})]

@@ -110,15 +110,16 @@ def _kernel_tables() -> str:
 def superframe_features(pcm: torch.Tensor, frames: int,
                         quantize_pitch: bool = False) -> torch.Tensor:
     """Superframe features of (B, samples) pcm holding whole chunks
-    (_pad_to_chunks), CHUNK_FRAMES frames per compute_features call.
-    Returns the first `frames` frames, (B, frames, 36)."""
+    (_pad_to_chunks), CHUNK_FRAMES frames per call of the feature step
+    (data.feature_step: on the card the second chunk captures it and the
+    others replay). Returns the first `frames` frames, (B, frames, 36)."""
     from . import features as F
+    from .data import feature_step
     state = F.init_state(pcm.shape[0], pcm.device)
     out = []
-    step = CHUNK_FRAMES * FRAME_SIZE
-    for s0 in range(0, pcm.shape[1], step):
-        state, feats, _ = F.compute_features(
-            state, pcm[:, s0:s0 + step], quantize_pitch=quantize_pitch)
+    n, step = CHUNK_FRAMES * FRAME_SIZE, feature_step(quantize_pitch)
+    for s0 in range(0, pcm.shape[1], n):
+        state, feats, _ = step(state, pcm[:, s0:s0 + n])
         out.append(feats)
     return torch.cat(out, dim=1)[:, :frames] if out else pcm.new_zeros(
         (pcm.shape[0], 0, NB_TOTAL_FEATURES))
@@ -163,9 +164,12 @@ def encode_chunks(cbs, pcm: torch.Tensor, n_sf: int):
     """The encode command's steps on (B, samples) pcm of n_sf whole
     superframes padded to whole chunks (_pad_to_chunks): per chunk of
     CHUNK_FRAMES frames, superframe features with quantized pitch, then
-    codec.encode_superframes. Returns (B, n_sf, 8) uint8 packets."""
+    codec.encode_superframes, both jit entry points (data.feature_step,
+    data.codec_step). Returns (B, n_sf, 8) uint8 packets."""
     from . import features as F
-    from .codec import codec
+    from .data import codec_step, feature_step
+    features, encode = (feature_step(True),
+                        codec_step("encode_superframes", cbs))
     B = pcm.shape[0]
     state = F.init_state(B, pcm.device)
     vq_mem = torch.zeros((B, NB_BANDS), device=pcm.device)
@@ -174,8 +178,8 @@ def encode_chunks(cbs, pcm: torch.Tensor, n_sf: int):
     for g0 in range(0, n_sf, group):
         x = pcm[:, g0 * LPCNET_PACKET_SAMPLES:
                 (g0 + group) * LPCNET_PACKET_SAMPLES]
-        state, feats, sps = F.compute_features(state, x, quantize_pitch=True)
-        buf, _, vq_mem = codec.encode_superframes(cbs, feats, vq_mem, sps)
+        state, feats, sps = features(state, x)
+        buf, _, vq_mem = encode(feats, vq_mem, sps)
         bufs.append(buf[:, :min(group, n_sf - g0)])
     return torch.cat(bufs, dim=1) if bufs else torch.zeros(
         (B, 0, LPCNET_COMPRESSED_SIZE), dtype=torch.uint8, device=pcm.device)
@@ -221,6 +225,7 @@ def cmd_decode(args) -> int:
     cbs = load_codebooks(args.codebooks, voc.device)
     bufs = torch.as_tensor(raw[:n_sf * LPCNET_COMPRESSED_SIZE].reshape(
         1, n_sf, LPCNET_COMPRESSED_SIZE), device=voc.device)
+    # one call per file: eager, as a jit's first call is
     feats, _ = codec.decode_packets(
         cbs, bufs, torch.zeros((1, NB_BANDS), device=voc.device))
     state = voc.reset(1)
@@ -526,30 +531,31 @@ def _dump_test(args, pcm: np.ndarray, cbs, dev) -> int:
     no augmentation, CHUNK_FRAMES frames per call. test and btest run the
     per-frame pitch path (process_single_frame, dump_data.c:283), qtest
     the superframe path quantized through the codec (:288); btest puts
-    each frame's Burg cepstra first, [burg36 | feat36]."""
+    each frame's Burg cepstra first, [burg36 | feat36]. The feature step,
+    the encode and Burg are jit entry points (data.py), one call of each
+    per chunk."""
     from . import features as F
-    from .codec import codec
-    from .ops import burg
+    from .data import burg_step, codec_step, feature_step
     pcm = _hp_biquad(pcm)
     T = len(pcm) // FRAME_SIZE // 4 * 4
     pcm = torch.as_tensor(_pad_to_chunks(pcm, T), device=dev)
     state = F.init_state(1, dev)
     vq_mem = torch.zeros((1, NB_BANDS), device=dev)
     mode = "single" if cbs is None else "superframe"
+    features = feature_step(cbs is not None, mode)
+    if cbs is not None:
+        encode = codec_step("encode_superframes", cbs)
     outs = []
     for t0 in range(0, pcm.shape[0] // FRAME_SIZE, CHUNK_FRAMES):
         x = pcm[None, t0 * FRAME_SIZE:(t0 + CHUNK_FRAMES) * FRAME_SIZE]
-        state, f, sps = F.compute_features(state, x,
-                                           quantize_pitch=cbs is not None,
-                                           mode=mode)
+        state, f, sps = features(state, x)
         if cbs is not None:
             n = min(CHUNK_FRAMES, T - t0) // 4
             if n:
-                _, fq, vq_mem = codec.encode_superframes(
-                    cbs, f[:, :4 * n], vq_mem, sps[:n])
+                _, fq, vq_mem = encode(f[:, :4 * n], vq_mem, sps[:n])
                 f = torch.cat([fq, f[:, 4 * n:]], dim=1)
         if args.mode == "btest":
-            b36 = burg.burg_cepstral_analysis(x[0].reshape(-1, FRAME_SIZE))
+            b36 = burg_step(x[0].reshape(-1, FRAME_SIZE))
             f = torch.cat([b36[None], f], dim=-1)
         outs.append(f[0].cpu().numpy())
     allf = np.concatenate(outs)[:T].astype(np.float32)

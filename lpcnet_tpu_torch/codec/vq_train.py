@@ -12,6 +12,15 @@ float32, which refuses to run on the card while TF32 is allowed, and the
 first minimum wins, as in codec/vq.py. Empty cells are re-seeded from
 random data points, as the JAX package does. Random draws come from an
 explicit torch.Generator on the data's device.
+
+A Lloyd pass of kmeans and an update of kmeans_multi are jit entry points
+(utils/graphs.py), as the JAX package jits them (lpcnet_tpu/codec/
+vq_train.py:73, :226), with the corpus and the generator as arguments: on
+the card each codebook size runs its first pass eagerly, captures the
+second and replays the others; the generator is registered with the
+graph. On the card the segment sums are index_put_ with accumulate, which
+gives the same bits in every run (index_add_ adds with atomics there, in
+another order in every run); on the CPU they are index_add_.
 """
 from typing import Dict
 
@@ -19,6 +28,7 @@ import torch
 
 from ..constants import NB_BANDS
 from ..device import refuse_tf32
+from ..utils import graphs
 
 _ASSIGN_CHUNK = 8192   # rows per distance matrix when N x K is large
 
@@ -43,8 +53,10 @@ def _assign_chunked(x: torch.Tensor, cb: torch.Tensor) -> torch.Tensor:
 
 
 def _segment_sum(v: torch.Tensor, idx: torch.Tensor, k: int) -> torch.Tensor:
-    return torch.zeros((k,) + v.shape[1:], dtype=v.dtype,
-                       device=v.device).index_add_(0, idx, v)
+    out = torch.zeros((k,) + v.shape[1:], dtype=v.dtype, device=v.device)
+    if v.is_cuda:
+        return out.index_put_((idx,), v, accumulate=True)
+    return out.index_add_(0, idx, v)
 
 
 def _update(x: torch.Tensor, assign: torch.Tensor, k: int):
@@ -60,10 +72,15 @@ def _reseed_empty(gen: torch.Generator, cb: torch.Tensor,
     return torch.where((counts > 0)[:, None], cb, repl)
 
 
+@torch.no_grad()
 def _lloyd_pass(cb: torch.Tensor, gen: torch.Generator,
                 x: torch.Tensor) -> torch.Tensor:
     new_cb, counts = _update(x, _assign_chunked(x, cb), cb.shape[0])
     return _reseed_empty(gen, new_cb, counts, x)
+
+
+# lloyd(cb, gen, x): one Lloyd pass (JAX's jitted _lloyd_pass)
+lloyd = graphs.jit(_lloyd_pass, "vq_train.lloyd")
 
 
 def _split(gen: torch.Generator, cb: torch.Tensor,
@@ -83,9 +100,9 @@ def kmeans(gen: torch.Generator, x: torch.Tensor, k: int, iters: int = 4,
     while cb.shape[0] < k:
         cb = _split(gen, cb, spread)
         for _ in range(iters):
-            cb = _lloyd_pass(cb, gen, x)
+            cb = lloyd(cb, gen, x)
     for _ in range(final_iters):
-        cb = _lloyd_pass(cb, gen, x)
+        cb = lloyd(cb, gen, x)
     return cb[:k]
 
 
@@ -148,7 +165,7 @@ def _assign_multi(targets: torch.Tensor, cb: torch.Tensor, sign: bool):
                 upd = dj < best_d
                 best_d = torch.where(upd, dj, best_d)
                 best_e = torch.where(upd, j * P + p, best_e)
-                best_s = torch.where(upd, best_s.new_tensor(sg), best_s)
+                best_s = torch.where(upd, sg, best_s)
         es.append(best_e)
         ss.append(best_s)
     return torch.cat(es), torch.cat(ss)
@@ -166,29 +183,37 @@ def kmeans_multi(gen: torch.Generator, targets: torch.Tensor, k: int,
     cb = torch.mean(targets, dim=0) + 0.01 * (torch.rand(
         (P, D), generator=gen, device=targets.device) - 0.5)
     spread = torch.std(targets.reshape(-1, D), dim=0, correction=0)
-
-    def upd(cb):
-        e, s = _assign_multi(targets, cb, sign)
-        t_sel = targets[torch.arange(N, device=targets.device), e % P]
-        K = cb.shape[0]
-        counts = _segment_sum(torch.ones_like(s), e, K)
-        new_cb = _segment_sum(s[:, None] * t_sel, e, K) / torch.clamp(
-            counts, min=1.0)[:, None]
-        # empty cells take the residual of their own predictor
-        ridx = torch.randint(0, N, (K,), generator=gen,
-                             device=targets.device)
-        repl = targets[ridx, torch.arange(K, device=targets.device) % P]
-        return torch.where((counts > 0)[:, None], new_cb, repl)
-
     for _ in range(10):
-        cb = upd(cb)
+        cb = multi_update(cb, gen, targets, sign)
     while cb.shape[0] < k:
         cb = _split(gen, cb, spread)
         for _ in range(iters):
-            cb = upd(cb)
+            cb = multi_update(cb, gen, targets, sign)
     for _ in range(final_iters):
-        cb = upd(cb)
+        cb = multi_update(cb, gen, targets, sign)
     return cb[:k]
+
+
+@torch.no_grad()
+def _multi_update(cb: torch.Tensor, gen: torch.Generator,
+                  targets: torch.Tensor, sign: bool) -> torch.Tensor:
+    """One update of kmeans_multi: assignment, signed means, empty cells
+    re-seeded from the residual of their own predictor."""
+    N, P, _ = targets.shape
+    e, s = _assign_multi(targets, cb, sign)
+    t_sel = targets[torch.arange(N, device=targets.device), e % P]
+    K = cb.shape[0]
+    counts = _segment_sum(torch.ones_like(s), e, K)
+    new_cb = _segment_sum(s[:, None] * t_sel, e, K) / torch.clamp(
+        counts, min=1.0)[:, None]
+    ridx = torch.randint(0, N, (K,), generator=gen, device=targets.device)
+    repl = targets[ridx, torch.arange(K, device=targets.device) % P]
+    return torch.where((counts > 0)[:, None], new_cb, repl)
+
+
+# multi_update(cb, gen, targets, sign): JAX's jitted upd of
+# vq_train_multi (vq_train.py:226)
+multi_update = graphs.jit(_multi_update, "vq_train.kmeans_multi.upd")
 
 
 def train_codec_codebooks(gen: torch.Generator, feats: torch.Tensor,

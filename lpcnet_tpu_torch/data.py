@@ -11,8 +11,18 @@ Per utterance stream:
      frames of conv context (dataloader.py:17-70)
 Without the native library, augment raises and build_pairs runs its numpy
 loop (slow; for tests).
+
+The device steps that the commands, the bench and the tools call once per
+chunk are jit entry points (utils/graphs.py) kept here, as the JAX
+package keeps its jitted feature step (lpcnet_tpu/data.py:96-106):
+feature_step(quantize, mode) per key, codec_step(kind, codebooks) per
+codec call and codebooks dict, one slot per kind (new codebooks evict the
+old ones' graphs, as lpcnet_tpu/data.py:148-156 does), and burg_step. On
+the card the first call of a shape runs eagerly, the second captures it,
+and later ones replay it; whole-chunk callers pad to one shape.
 """
 import ctypes
+import functools
 import sys
 from typing import Dict, Iterator, Optional, Tuple
 
@@ -22,11 +32,51 @@ import torch
 from . import features as F
 from .constants import FRAME_SIZE, LPC_ORDER, TRAINING_OFFSET
 from .device import resolve_device
-from .ops import dsp
-from .utils import native
+from .ops import burg, dsp
+from .utils import graphs, native
 
 CHUNK = 256            # frames per compute_features call
 _LPC = slice(18 + 2, 18 + 2 + LPC_ORDER)   # the LPC columns of a frame
+
+
+_FEATURE_STEPS: Dict[Tuple[bool, str], graphs.jit] = {}
+_CODEC_STEPS: Dict[str, Tuple[int, graphs.jit]] = {}
+CODEC_KINDS = ("encode_superframe", "encode_superframes", "decode_packet",
+               "decode_packets")
+
+
+def feature_step(quantize: bool, mode: str = "superframe") -> graphs.jit:
+    """features.compute_features(state, pcm, quantize_pitch=quantize,
+    mode=mode) as a jit entry point, one per (quantize, mode), made on its
+    first request and kept for the process (JAX's _feature_step_fn)."""
+    key = (bool(quantize), mode)
+    if key not in _FEATURE_STEPS:
+        _FEATURE_STEPS[key] = graphs.jit(
+            functools.partial(F.compute_features, quantize_pitch=key[0],
+                              mode=mode),
+            f"data.feature_step(quantize={key[0]}, mode={mode})")
+    return _FEATURE_STEPS[key]
+
+
+def codec_step(kind: str, codebooks) -> graphs.jit:
+    """codec.<kind>(codebooks, ...) as a jit entry point ("data.<kind>")
+    over the codebooks dict `codebooks`, whose tensors the graphs read
+    where they lie. One slot per kind, keyed by the dict's identity: a new
+    dict replaces the kind's jit and its graphs (the JAX package's
+    single-slot cache of its encode step)."""
+    if kind not in CODEC_KINDS:
+        raise ValueError(f"kind must be one of {CODEC_KINDS}, not {kind!r}")
+    slot = _CODEC_STEPS.get(kind)
+    if slot is None or slot[0] != id(codebooks):
+        from .codec import codec
+        slot = _CODEC_STEPS[kind] = (id(codebooks), graphs.jit(
+            functools.partial(getattr(codec, kind), codebooks),
+            f"data.{kind}"))
+    return slot[1]
+
+
+# ops/burg.burg_cepstral_analysis of a chunk of frames (B, 160) -> (B, 36)
+burg_step = graphs.jit(burg.burg_cepstral_analysis, "data.burg_step")
 
 
 def _ptr(a: np.ndarray):
@@ -93,18 +143,16 @@ def _features(z: torch.Tensor, T: int, codebooks=None) -> np.ndarray:
     N = z.shape[0]
     state = F.init_state(N, z.device)
     quant = codebooks is not None
+    step = feature_step(quant)
     if quant:
-        from .codec import codec
+        encode = codec_step("encode_superframes", codebooks)
         vq_mem = torch.zeros((N, 18), device=z.device)
     parts = []
     for t0 in range(0, T, CHUNK):
         t1 = min(T, t0 + CHUNK)
-        state, f, sps = F.compute_features(
-            state, z[:, t0 * FRAME_SIZE:t1 * FRAME_SIZE],
-            quantize_pitch=quant)
+        state, f, sps = step(state, z[:, t0 * FRAME_SIZE:t1 * FRAME_SIZE])
         if quant:
-            _, f, vq_mem = codec.encode_superframes(codebooks, f, vq_mem,
-                                                    sps)
+            _, f, vq_mem = encode(f, vq_mem, sps)
         parts.append(f.cpu().numpy())
     return np.concatenate(parts, axis=1)
 
@@ -142,7 +190,7 @@ def prepare_training_data(pcm: np.ndarray, seed: int = 0,
     feats = _features(z, T, quantize_codebooks)[0]
     data = build_pairs(_delayed_pcm16(x), feats[:, _LPC], noise)
     if include_burg:
-        from .ops import burg
+        # one call over the whole corpus: eager, as a jit's first call is
         burg36 = burg.burg_cepstral_analysis(
             z[0, :S].reshape(T, FRAME_SIZE)).cpu().numpy()
         return feats, data, burg36

@@ -439,6 +439,71 @@ def synthesize_frames(tables: Dict[str, Any], state: Dict[str, torch.Tensor],
     return state, torch.cat(pcm, dim=1).reshape(B, T * fs)
 
 
+STATE_KEYS = ("gru_a", "gru_b", "last_sig", "last_exc", "deemph", "rng")
+# the per-frame inputs of a temperature sample step
+TEMPERATURE_INPUTS = ("cond_a", "cond_b", "lpc", "texp")
+
+
+def temperature_buffers(state: Dict[str, torch.Tensor],
+                        conds: Dict[str, torch.Tensor], cfg
+                        ) -> Dict[str, torch.Tensor]:
+    """The buffers temperature_step_ works in, for the streams of `state`
+    and the frame conditions `conds` (B, T, ...): the state's six leaves,
+    one frame's cond_a, cond_b, lpc and texp, the frame's pcm (B,
+    frame_size) and the position of the next sample in it, pos (1,)
+    int64; on the state's device, their values undefined."""
+    bufs = {k: torch.empty_like(state[k]) for k in STATE_KEYS}
+    bufs.update({k: torch.empty_like(conds[k][:, 0])
+                 for k in TEMPERATURE_INPUTS})
+    B = state["rng"].shape[0]
+    bufs["pcm"] = torch.empty((B, cfg.frame_size), dtype=torch.float32,
+                              device=state["rng"].device)
+    bufs["pos"] = torch.zeros(1, dtype=torch.int64,
+                              device=state["rng"].device)
+    return bufs
+
+
+def temperature_step_(tables: Dict[str, Any], cfg,
+                      bufs: Dict[str, torch.Tensor]) -> None:
+    """One temperature sample step (sample_step with temp_exp) in place on
+    temperature_buffers: the state leaves take the step's new state, the
+    sample goes to pcm[:, pos] and pos advances by one. The arithmetic is
+    sample_step's, so the bits are those of synthesize_frames(...,
+    temp_exp=...)."""
+    new, out = sample_step(tables, {k: bufs[k] for k in STATE_KEYS},
+                           bufs["cond_a"], bufs["cond_b"], bufs["lpc"],
+                           cfg.approx, cfg.preemph, temp_exp=bufs["texp"])
+    for k in STATE_KEYS:
+        bufs[k].copy_(new[k])
+    bufs["pcm"].index_copy_(1, bufs["pos"], out[:, None])
+    bufs["pos"].add_(1)
+
+
+def synthesize_frames_temperature(step, state: Dict[str, torch.Tensor],
+                                  conds: Dict[str, torch.Tensor], cfg
+                                  ) -> Tuple[Dict[str, torch.Tensor],
+                                             torch.Tensor]:
+    """Temperature synthesis of T frames through `step`, a call that runs
+    temperature_step_ on its buffers step.bufs (temperature_buffers; a
+    utils/graphs.loop_step replays it as one CUDA graph): the state is
+    copied in, then per frame its cond_a, cond_b, lpc and texp, and
+    frame_size steps fill the frame's pcm. conds: cond_a, cond_b, lpc
+    (B, T, ...) and texp (B, T). Returns (new_state, pcm (B, T*frame_size)),
+    what synthesize_frames(..., temp_exp=texp) returns, bit for bit."""
+    bufs = step.bufs
+    for k in STATE_KEYS:
+        bufs[k].copy_(state[k])
+    pcm = []
+    for t in range(conds["cond_a"].shape[1]):
+        for k in TEMPERATURE_INPUTS:
+            bufs[k].copy_(conds[k][:, t])
+        bufs["pos"].zero_()
+        for _ in range(cfg.frame_size):
+            step()
+        pcm.append(bufs["pcm"].clone())
+    return {k: bufs[k].clone() for k in STATE_KEYS}, torch.cat(pcm, dim=1)
+
+
 TABLES = ("tbl_sig", "tbl_pred", "tbl_exc")
 TABLE_DTYPES = (torch.float32, torch.bfloat16)
 

@@ -55,6 +55,7 @@ from ..ops import kiss99
 from ..training import lpcnet_task
 from ..training.optim import tree_leaves, tree_map, tree_unflatten, \
     value_and_grad
+from ..utils import graphs
 
 PG_TIMEOUT_S = 300     # a collective waits this long for a dead peer
 MODULE = "lpcnet_tpu_torch.parallel.mesh"
@@ -176,21 +177,16 @@ def global_noise(gen: torch.Generator, local_shape, cfg, rank: int,
     return {"cpcm": cpcm[rows], "gru_a": gru_a[rows]}
 
 
-def dp_train_step(params, opt_state, local_batch, cfg, opt, noise=None):
-    """One LPCNet train step on a data-parallel batch (lpcnet_task.
-    train_step on the whole batch): this rank's loss and gradients on its
-    rows, the gradients averaged over the ranks (one flattened buffer,
-    all-reduced and divided by the world size), the same Adam update and
-    weight clip on every rank. noise: as lpcnet_task's; a generator (seeded
-    alike on every rank) draws the whole batch's noise (global_noise).
-    Returns (params, opt_state, metrics averaged over the ranks)."""
+def _dp_train_step(params, opt_state, local_batch, cfg, opt, noise=None):
     rank, world = rank_world()
     if isinstance(noise, torch.Generator):
         noise = global_noise(noise, local_batch["sig_in"].shape, cfg, rank,
                              world)
     (_, metrics), grads = value_and_grad(
         lambda p: lpcnet_task.loss_fn(p, local_batch, cfg, noise), params)
-    if world > 1:
+    if dist.is_available() and dist.is_initialized():
+        # in a group of one too: a sum over one rank divided by 1 keeps
+        # the bits, and the graph holds the collective all the same
         leaves = tree_leaves(grads)
         flat = torch.cat([g.reshape(-1) for g in leaves])
         dist.all_reduce(flat)
@@ -206,6 +202,37 @@ def dp_train_step(params, opt_state, local_batch, cfg, opt, noise=None):
     with torch.no_grad():
         params = lpcnet_task.weight_clip(params)
     return params, opt_state, metrics
+
+
+# the counterpart of JAX's jitted train_step over the dp mesh
+# (lpcnet_tpu/parallel/mesh.py:66-110), the all-reduce inside the program:
+# captured with capture_error_mode="thread_local", since the process
+# group's watchdog thread may make CUDA calls while a rank captures
+_dp_step = graphs.jit(_dp_train_step, "mesh.dp_train_step",
+                      capture_error_mode="thread_local")
+
+
+def dp_train_step(params, opt_state, local_batch, cfg, opt, noise=None):
+    """One LPCNet train step on a data-parallel batch (lpcnet_task.
+    train_step on the whole batch): this rank's loss and gradients on its
+    rows, the gradients averaged over the ranks (one flattened buffer,
+    all-reduced and divided by the world size), the same Adam update and
+    weight clip on every rank. noise: as lpcnet_task's; a generator (seeded
+    alike on every rank) draws the whole batch's noise (global_noise).
+    Returns (params, opt_state, metrics averaged over the ranks).
+
+    A jit entry point ("mesh.dp_train_step"): over NCCL (and with no
+    process group) the first step of a signature runs eagerly, which also
+    makes NCCL's communicator before any capture, the second is captured
+    with both all-reduces, the loss, the gradients, Adam, the weight clip
+    and the noise generator inside, and later steps replay it on every
+    rank in step. A gloo collective copies through the host and cannot be
+    captured, so in a gloo group every step runs eagerly."""
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_backend() != "nccl":
+        with graphs.disabled():
+            return _dp_step(params, opt_state, local_batch, cfg, opt, noise)
+    return _dp_step(params, opt_state, local_batch, cfg, opt, noise)
 
 
 # ---------------------------------------------------------------- processes

@@ -58,8 +58,11 @@ def synth_stats(params, cfg, feats, ref_pcm, nframes, device=None):
 @torch.no_grad()
 def speech_features(pcm: np.ndarray, device) -> torch.Tensor:
     """Superframe features (1, T, 36) of the whole superframes of pcm, in
-    CHUNK-frame calls carrying the extractor state."""
+    CHUNK-frame calls of the feature step (data.feature_step, the JAX
+    tool's jitted compute_features) carrying the extractor state."""
     from .. import features as F
+    from ..data import feature_step
+    step = feature_step(False)
     T = len(pcm) // FRAME_SIZE // 4 * 4
     Tp = -(-T // CHUNK) * CHUNK
     x = np.zeros((1, Tp * FRAME_SIZE), np.float32)
@@ -67,8 +70,7 @@ def speech_features(pcm: np.ndarray, device) -> torch.Tensor:
     x = torch.as_tensor(x, device=device)
     st, parts = F.init_state(1, device), []
     for t0 in range(0, Tp, CHUNK):
-        st, f, _ = F.compute_features(
-            st, x[:, t0 * FRAME_SIZE:(t0 + CHUNK) * FRAME_SIZE])
+        st, f, _ = step(st, x[:, t0 * FRAME_SIZE:(t0 + CHUNK) * FRAME_SIZE])
         parts.append(f)
     return torch.cat(parts, dim=1)[:, :T]
 

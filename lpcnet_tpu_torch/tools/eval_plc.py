@@ -19,6 +19,7 @@ import torch
 
 from ..constants import NB_BANDS, NB_FEATURES, NB_TOTAL_FEATURES
 from ..device import resolve_device
+from ..utils import graphs
 
 
 def masked_inputs(data: np.ndarray, loss_rate: float, seed: int):
@@ -40,13 +41,22 @@ def masked_inputs(data: np.ndarray, loss_rate: float, seed: int):
 
 
 @torch.no_grad()
+def _forward(params, x):
+    from ..models import plc as plc_model
+    return plc_model.forward_sequence(params, x)
+
+
+# the JAX tool's jitted forward (tools/eval_plc.py:58): called for the
+# trained and the random weights on one input, so on the card the second
+# call captures it when the two trees have one signature
+forward = graphs.jit(_forward, "eval_plc.forward")
+
+
 def lost_l1(params, inputs, feat, lost, device) -> float:
     """Mean |prediction - truth| on the lost frames, the net on device."""
     from .. import convert
-    from ..models import plc as plc_model
-    pred = plc_model.forward_sequence(
-        convert.to_device(params, device),
-        torch.as_tensor(inputs, device=device))[0].cpu().numpy()
+    pred = forward(convert.to_device(params, device),
+                   torch.as_tensor(inputs, device=device))[0].cpu().numpy()
     return float(np.abs(pred[lost] - feat[lost]).mean())
 
 

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils import graphs
 
 # the reference's schedule: (mean weight, max weight, learning rate); pure
 # MSE, then 1/0.1/0.01 mean weight with unit max weight (pade.py:100-113)
@@ -60,11 +61,27 @@ def loss_fn(p, x, y, basis, mean_w: float, max_w: float):
     return mean_w * torch.mean(e2) + max_w * torch.amax(e2)
 
 
+def _fit_step(params, state, x, y, basis, mean_w: float, max_w: float,
+              opt):
+    """One Adam step of the stage's loss. Returns (params, state)."""
+    from ..training.optim import value_and_grad
+    _, g = value_and_grad(
+        lambda p: (loss_fn(p, x, y, basis, mean_w, max_w), {}), params)
+    return opt.apply(params, g, state)
+
+
+# the counterpart of the JAX tool's jitted step (tools/fit_pade.py:60):
+# the stage's weights and its optimizer are static leaves, so each stage
+# is a signature; on the card its first step runs eagerly, the second is
+# captured, and the others replay it
+fit_step = graphs.jit(_fit_step, "fit_pade.step")
+
+
 def fit(steps_per_stage: int = 20000, lr: float = 0.05, verbose: bool = True,
         device=None):
     """The staged fit from the seed. Returns ({num, den} as lists, max
     |error|, mean |error|) on the grid."""
-    from ..training.optim import ScheduledAdam, value_and_grad
+    from ..training.optim import ScheduledAdam
     dev = resolve_device(device)
     x, y, basis = grid(dev)
     params = seed_params(dev)
@@ -73,10 +90,8 @@ def fit(steps_per_stage: int = 20000, lr: float = 0.05, verbose: bool = True,
         opt = ScheduledAdam(lr=lr if slr is None else slr, b1=0.9, b2=0.9)
         state = opt.init(params)
         for _ in range(steps_per_stage):
-            _, g = value_and_grad(
-                lambda p: (loss_fn(p, x, y, basis, mean_w, max_w), {}),
-                params)
-            params, state = opt.apply(params, g, state)
+            params, state = fit_step(params, state, x, y, basis, mean_w,
+                                     max_w, opt)
         with torch.no_grad():
             err = (predict(params, x, basis) - y).abs().cpu().numpy()
         if verbose:

@@ -29,6 +29,7 @@ import torch
 
 from ..constants import FRAME_SIZE, NB_BANDS
 from ..device import resolve_device
+from ..utils import graphs
 
 REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir,
                     os.pardir)
@@ -36,22 +37,33 @@ GOLDEN = os.path.join(REPO, "tests", "golden", "speech.s16")
 
 
 @torch.no_grad()
+def _feats_of(x: torch.Tensor) -> torch.Tensor:
+    """Superframe features (N, T, 36) of N augmented passes (N, S): their
+    de-emphasis and one compute_features call from a fresh state."""
+    from .. import features as F
+    from ..ops import dsp
+    z, _ = dsp.deemphasis_scan(x, x.new_zeros(x.shape[0]))
+    return F.compute_features(F.init_state(x.shape[0], x.device), z)[1]
+
+
+# the JAX tool's jitted feats_of (tools/train_codebooks.py:51): every full
+# batch of passes has one shape, so on the card the second batch captures
+# it and the later ones replay
+feats_of = graphs.jit(_feats_of, "train_codebooks.feats_of")
+
+
 def build_corpus(pcm: np.ndarray, passes: int, seed0: int, device,
                  batch: int = 16) -> np.ndarray:
     """Features of `passes` differently-augmented copies of pcm, extracted
     `batch` passes at a time. Returns (passes*T, 36)."""
     from .. import data as D
-    from .. import features as F
-    from ..ops import dsp
     S = len(pcm) // (4 * FRAME_SIZE) * (4 * FRAME_SIZE)
     out = []
     for b0 in range(0, passes, batch):
         n_real = min(passes, b0 + batch) - b0
         xs = [D.augment(pcm[:S], seed=seed0 + b0 + p)[0][:S]
               for p in range(n_real)]
-        x = torch.as_tensor(np.stack(xs), device=device)
-        z, _ = dsp.deemphasis_scan(x, torch.zeros(n_real, device=device))
-        _, f, _ = F.compute_features(F.init_state(n_real, device), z)
+        f = feats_of(torch.as_tensor(np.stack(xs), device=device))
         out.append(f.cpu().numpy().reshape(-1, f.shape[-1]))
         print(f"  corpus: {b0 + n_real}/{passes} passes", flush=True)
     return np.concatenate(out)
@@ -75,22 +87,27 @@ def stage_rms(feats: np.ndarray, cbs, device) -> dict:
 @torch.no_grad()
 def codec_rms(pcm: np.ndarray, cbs, device) -> float:
     """End-to-end codec distortion: encode/decode round trip on audio,
-    RMS over all 4 frames' 18-dim cepstra against unquantized features."""
+    RMS over all 4 frames' 18-dim cepstra against unquantized features.
+    The features are one call of the feature step, then one call of the
+    encode and decode steps per superframe (data.codec_step: on the card
+    the second superframe captures them and the others replay)."""
     from .. import features as F
-    from ..codec import codec
+    from ..data import codec_step, feature_step
     n_sf = len(pcm) // 640
-    _, feats, sps = F.compute_features(
+    _, feats, sps = feature_step(True)(
         F.init_state(1, device),
         torch.as_tensor(pcm[None, :n_sf * 640].astype(np.float32),
-                        device=device), quantize_pitch=True)
+                        device=device))
     cbs = {k: torch.as_tensor(v, device=device) for k, v in cbs.items()}
+    enc = codec_step("encode_superframe", cbs)
+    dec = codec_step("decode_packet", cbs)
     vq_mem = torch.zeros((1, NB_BANDS), device=device)
     dec_mem = torch.zeros((1, NB_BANDS), device=device)
     err, n = 0.0, 0
     for g in range(n_sf):
         raw4 = feats[:, 4 * g:4 * (g + 1)]
-        buf, _, vq_mem = codec.encode_superframe(cbs, raw4, vq_mem, sps[g])
-        rec4, dec_mem = codec.decode_packet(cbs, buf, dec_mem)
+        buf, _, vq_mem = enc(raw4, vq_mem, sps[g])
+        rec4, dec_mem = dec(buf, dec_mem)
         d = (rec4[0, :, :NB_BANDS] - raw4[0, :, :NB_BANDS]).cpu().numpy()
         err += float((d * d).sum())
         n += 4 * NB_BANDS

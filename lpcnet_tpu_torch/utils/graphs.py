@@ -33,6 +33,17 @@ in a replay. The module's `captures` and `replays` count graphs made and
 replayed per entry point's name, as kernels/sample_cuda.py counts
 launches per kernel; a jit's clear() drops its graphs, and
 graph_nodes(graph) counts a kept graph's nodes.
+
+    body = loop_step(fn, bufs, "Engine.sample_step")
+    for _ in range(160):            # the body of a loop, as XLA compiles
+        body()                      # a scan's body once: fn(bufs) in place
+
+loop_step is the counterpart of a jax.lax.scan whose body is compiled
+once: fn updates the tensors of bufs in place and returns nothing; its
+first call runs eagerly, the CAPTURE_CALL-th captures it on bufs
+themselves, and it and every later call replay the graph, with nothing
+copied in or out. The caller writes each iteration's inputs into bufs and
+reads the results from them.
 """
 import collections
 import contextlib
@@ -195,10 +206,16 @@ def _device(args, name: str) -> Optional[torch.device]:
     return next(iter(devices), None)
 
 
+def _capture_error(name: str, e: Exception) -> RuntimeError:
+    return RuntimeError(f"{name}: the call could not be captured as a CUDA "
+                        f"graph: {e}")
+
+
 def compile_step(fn: Callable, example_args: Tuple,
                  name: str = "compile_step", pool=None,
                  warmup: int = WARMUP_CALLS,
-                 keep_graph: bool = False) -> CompiledStep:
+                 keep_graph: bool = False,
+                 capture_error_mode: str = "global") -> CompiledStep:
     """The counterpart of jax.jit(fn) on the card for one signature: fn
     called `warmup` times on a side stream (cuBLAS handles, cuFFT plans,
     the kernels' libraries and per-device constants exist before the
@@ -207,10 +224,12 @@ def compile_step(fn: Callable, example_args: Tuple,
     torch.cuda.CUDAGraph (in `pool`, a graph_pool_handle, or a pool of its
     own). The CUDA generators among the arguments are registered with the
     graph (the warm-up calls draw from them as eager calls do). With
-    keep_graph the graph keeps its cudaGraph_t for graph_nodes. Raises
-    RuntimeError on a device that is not CUDA (there are no graphs there)
-    and when the capture fails; it never falls back to eager calls. An
-    error of fn in a warm-up call propagates as fn raised it."""
+    keep_graph the graph keeps its cudaGraph_t for graph_nodes.
+    capture_error_mode is torch.cuda.graph's: "thread_local" lets other
+    threads make CUDA calls during the capture (a process group's watchdog
+    does). Raises RuntimeError on a device that is not CUDA (there are no
+    graphs there) and when the capture fails; it never falls back to eager
+    calls. An error of fn in a warm-up call propagates as fn raised it."""
     example_args = tuple(example_args)
     dev = _device(example_args, name)
     if dev is None or dev.type != "cuda":
@@ -231,13 +250,13 @@ def compile_step(fn: Callable, example_args: Tuple,
             graph.register_generator_state(x)
     t0 = time.perf_counter()
     try:
-        with torch.cuda.graph(graph, pool=pool):
+        with torch.cuda.graph(graph, pool=pool,
+                              capture_error_mode=capture_error_mode):
             out = fn(*static)
         if keep_graph:
             graph.instantiate()
     except Exception as e:
-        raise RuntimeError(f"{name}: the call could not be captured as a "
-                           f"CUDA graph: {e}") from e
+        raise _capture_error(name, e) from e
     captures[name] += 1
     return CompiledStep(graph, static, out, name, time.perf_counter() - t0)
 
@@ -250,10 +269,14 @@ class jit:
     disabled(), fn runs eagerly and nothing is counted or cached. Raises
     ValueError for arguments on more than one device. A bound method is
     held weakly, so that an engine's graphs and pool are freed with the
-    engine (it holds its jit, which would otherwise hold it)."""
+    engine (it holds its jit, which would otherwise hold it).
+    capture_error_mode: compile_step's, for an entry point whose capture
+    runs beside another thread's CUDA calls."""
 
-    def __init__(self, fn: Callable, name: str):
+    def __init__(self, fn: Callable, name: str,
+                 capture_error_mode: str = "global"):
         self.fn, self.name = fn, name
+        self.capture_error_mode = capture_error_mode
         self.clear()
 
     def clear(self):
@@ -290,7 +313,52 @@ class jit:
             if self.pool is None:
                 self.pool = torch.cuda.graph_pool_handle()
             step = compile_step(self.fn, args, self.name, self.pool,
-                                warmup=0)
+                                warmup=0,
+                                capture_error_mode=self.capture_error_mode)
             self.steps[key] = step
             del self._calls[key]
         return step(*args)
+
+
+class loop_step:
+    """fn(bufs), which updates the tensors of the tree bufs in place and
+    returns nothing, as the body of a loop over those buffers (module
+    docstring). On CUDA buffers the first call runs fn eagerly (the
+    capture's warm-up), the CAPTURE_CALL-th captures it on bufs themselves
+    and replays it, and every later call replays it. On the CPU, or inside
+    disabled(), fn runs eagerly. The tensors of bufs must stay the ones
+    the step was made with: the graph reads and writes their memory. A
+    failed capture raises RuntimeError naming the step; nothing falls back
+    to eager calls. `calls` counts the eager calls on the card before the
+    capture, `replays` the replays, `capture_s` the capture's host time."""
+
+    def __init__(self, fn: Callable, bufs, name: str):
+        self.fn, self.bufs, self.name = fn, bufs, name
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.calls = self.replays = 0
+        self.capture_s = 0.0
+        self.device = _device(bufs, name)
+
+    def __call__(self) -> None:
+        dev = self.device
+        if is_disabled() or dev is None or dev.type != "cuda":
+            self.fn(self.bufs)
+            return
+        if self.graph is None:
+            if self.calls + 1 < CAPTURE_CALL:
+                self.fn(self.bufs)
+                self.calls += 1
+                return
+            graph = torch.cuda.CUDAGraph()
+            t0 = time.perf_counter()
+            try:
+                with torch.cuda.graph(graph):
+                    self.fn(self.bufs)
+            except Exception as e:
+                raise _capture_error(self.name, e) from e
+            self.capture_s = time.perf_counter() - t0
+            self.graph = graph
+            captures[self.name] += 1
+        self.graph.replay()
+        self.replays += 1
+        replays[self.name] += 1

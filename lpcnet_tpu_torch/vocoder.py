@@ -24,10 +24,13 @@ first call of each argument signature runs eagerly, the second captures the
 call as a CUDA graph, and it and every later call replay it
 (utils/graphs.py); graphs.disabled() runs them eagerly, and on the CPU they
 always run eagerly. synthesize_temperature (jitted at vocoder.py:123 there)
-stays eager here: its graph would unroll every sample step's small ops, and
-its capture takes seconds per frame on an H100 (chip_smoke.py phase 4l
-prints it).
+is compiled as XLA compiles its scan: its conditioning is one jit, and the
+body of its sample loop, one sample step, is captured once per batch size
+(utils/graphs.loop_step) and replayed frame_size times per frame on
+buffers that hold the state; a graph of a whole call would hold every op
+of every sample step, and its capture takes seconds per frame.
 """
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -103,6 +106,12 @@ class Synthesizer:
             self._synthesize_teacher, "Synthesizer.synthesize_teacher")
         self._synth_streaming = graphs.jit(
             self._synthesize_streaming, "Synthesizer.synthesize_streaming")
+        self._temp_conds = graphs.jit(
+            self._temperature_conditions,
+            "Synthesizer.synthesize_temperature.conditions")
+        # the sample step of temperature synthesis per batch size: a
+        # graphs.loop_step on its buffers
+        self._temp_steps: Dict[int, graphs.loop_step] = {}
 
     def reset(self, batch: int, per_stream_rng: bool = False):
         """Fresh per-stream state (lpcnet_reset, lpcnet.c:174-182)."""
@@ -172,18 +181,39 @@ class Synthesizer:
         noisy voiced segments at the price of leaving the C-bit-exact
         sampling path. It runs the plain PyTorch loop on the synthesizer's
         device, the card included: the JAX package has no kernel for this
-        mode either (its scan backend only). It runs eagerly on the card
-        too, not as a CUDA graph: a graph holds every operation of every
-        sample step, and its capture takes seconds per frame on an H100
-        (chip_smoke.py phase 4l), minutes for a CLI chunk of 64 frames."""
+        mode either (its scan backend only). On the card the conditioning
+        is a jit entry point ("Synthesizer.synthesize_temperature.
+        conditions") and the sample step a graphs.loop_step
+        ("Synthesizer.synthesize_temperature.sample_step", one per batch
+        size): its first step ever runs eagerly, its second is captured,
+        and every later step replays it, frame_size replays per frame."""
         return self._synthesize_temperature(state, self._f32(features))
 
     @torch.no_grad()
-    def _synthesize_temperature(self, state, f):
+    def _temperature_conditions(self, f):
         conds = self.conditions(f)
-        texp = torch.clamp(1.5 * f[..., 19] - 0.5, min=0.0)
-        return sample_scan.synthesize_frames(self.tables, state, conds,
-                                             self.cfg, temp_exp=texp)
+        return {"cond_a": conds["cond_a"], "cond_b": conds["cond_b"],
+                "lpc": conds["lpc"],
+                "texp": torch.clamp(1.5 * f[..., 19] - 0.5, min=0.0)}
+
+    def _temperature_step(self, state, conds) -> graphs.loop_step:
+        """The sample step of temperature synthesis for the batch of
+        `state`: made on the first call of a batch size (its buffers
+        included), the same object after."""
+        B = state["rng"].shape[0]
+        if B not in self._temp_steps:
+            self._temp_steps[B] = graphs.loop_step(
+                functools.partial(sample_scan.temperature_step_,
+                                  self.tables, self.cfg),
+                sample_scan.temperature_buffers(state, conds, self.cfg),
+                "Synthesizer.synthesize_temperature.sample_step")
+        return self._temp_steps[B]
+
+    @torch.no_grad()
+    def _synthesize_temperature(self, state, f):
+        conds = self._temp_conds(f)
+        return sample_scan.synthesize_frames_temperature(
+            self._temperature_step(state, conds), state, conds, self.cfg)
 
     # ------------------------------------------------ reference-exact mode
     def reset_streaming(self, batch: int, per_stream_rng: bool = False):

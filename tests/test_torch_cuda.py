@@ -988,3 +988,262 @@ def test_graphed_train_step_fails_on_a_per_call_upload(card, monkeypatch):
     step(*args(params, state))
     assert graphs.captures == {step.name: 1}
     step.clear()
+
+
+# ---- the JAX package's other jit sites (tests/test_torch_jit_sites.py on
+# the CPU): the feature, codec and Burg steps (data.py), the k-means updates
+# (codec/vq_train.py), the tools' steps; each a chain of JIT_SITE_CALLS
+# calls at two sizes (streams, frames or corpus rows: JIT_SITE_SIZES)
+JIT_SITE_CASES = ["feature_step-superframe", "feature_step-superframe_q",
+                  "feature_step-single", "feature_step-single_q",
+                  "encode_superframes", "encode_superframe",
+                  "decode_packets", "decode_packet", "burg_step", "lloyd",
+                  "kmeans_multi", "fit_pade", "feats_of", "eval_plc"]
+JIT_SITE_SIZES = {"feature_step": (1, 128), "encode": (1, 128),
+                  "decode": (1, 128), "burg_step": (64, 1024),
+                  "lloyd": (2000, 40000), "kmeans_multi": (2000, 40000),
+                  "fit_pade": (1000, 2000), "feats_of": (1, 16),
+                  "eval_plc": (1, 32)}
+JIT_SITE_CALLS = 4
+
+
+def _same(a, b) -> bool:
+    from lpcnet_tpu_torch.utils import graphs
+    la, sa = graphs.flatten(a)
+    lb, sb = graphs.flatten(b)
+    return sa == sb and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        for x, y in zip(la, lb))
+
+
+def _jit_site(card, case, which):
+    """(the jit, run): run() makes the case's inputs afresh from its seeds
+    and calls the jit JIT_SITE_CALLS times, each call on what the last one
+    left where the site carries a state; it returns the calls' outputs and
+    the generator's state after them (None without a generator)."""
+    from lpcnet_tpu_torch import data
+    from lpcnet_tpu_torch import features as F
+    from lpcnet_tpu_torch.cli import load_codebooks
+    from lpcnet_tpu_torch.codec import codec, vq_train
+    n = JIT_SITE_CALLS
+    kind = case.split("-")[0]
+    size = JIT_SITE_SIZES[kind.split("_")[0] if kind.startswith(
+        ("encode", "decode")) else kind][which]
+    rs = np.random.RandomState(size)
+
+    def dev(x):
+        return torch.as_tensor(x, device=card)
+
+    if kind == "feature_step":
+        mode, _, q = case.split("-")[1].partition("_")
+        step = data.feature_step(q == "q", mode)
+        pcm = dev((rs.randn(size, n * 8 * 160) * 3000).astype(np.float32))
+
+        def run():
+            st, outs = F.init_state(size, card), []
+            for i in range(n):
+                outs.append(step(st, pcm[:, i * 1280:(i + 1) * 1280]))
+                st = outs[-1][0]
+            return outs, None
+        return step, run
+    if kind.startswith(("encode", "decode")):
+        cbs = load_codebooks(None, card)
+        step = data.codec_step(kind, cbs)
+        S = 2 if kind.endswith("s") else 1
+        pcm = dev((rs.randn(size, n * S * 640) * 3000).astype(np.float32))
+        _, feats, sps = F.compute_features(F.init_state(size, card), pcm,
+                                           quantize_pitch=True)
+        mem0 = torch.zeros((size, 18), device=card)
+        bufs = codec.encode_superframes(cbs, feats, mem0, sps)[0]
+
+        def args(i):
+            sl = slice(i * S, (i + 1) * S)
+            if kind == "encode_superframes":
+                return feats[:, 4 * sl.start:4 * sl.stop], sps[sl]
+            if kind == "encode_superframe":
+                return feats[:, 4 * i:4 * i + 4], sps[i]
+            return (bufs[:, sl],) if kind == "decode_packets" else \
+                (bufs[:, i],)
+
+        def run():
+            mem, outs = mem0, []
+            for i in range(n):
+                a = args(i)
+                outs.append(step(a[0], mem, *a[1:]) if kind.startswith(
+                    "encode") else step(a[0], mem))
+                mem = outs[-1][-1]
+            return outs, None
+        return step, run
+    if kind == "burg_step":
+        frames = dev((rs.randn(n, size, 160) * 3000).astype(np.float32))
+        return data.burg_step, lambda: (
+            [data.burg_step(frames[i]) for i in range(n)], None)
+    if kind in ("lloyd", "kmeans_multi"):
+        multi = kind == "kmeans_multi"
+        x = dev(rs.randn(*((size, 4, 18) if multi else (size, 17)))
+                .astype(np.float32))
+        cb0 = dev(rs.randn(16, 18 if multi else 17).astype(np.float32))
+        step = vq_train.multi_update if multi else vq_train.lloyd
+        # one generator, held by the graph (a new one is a new signature),
+        # seeded afresh in each run
+        gen = torch.Generator(device=card)
+
+        def run():
+            gen.manual_seed(0)
+            cb, outs = cb0, []
+            for _ in range(n):
+                cb = step(cb, gen, x, True) if multi else step(cb, gen, x)
+                outs.append(cb)
+            return outs, gen.get_state()
+        return step, run
+    if kind == "fit_pade":
+        from lpcnet_tpu_torch.tools import fit_pade
+        from lpcnet_tpu_torch.training.optim import ScheduledAdam
+        x, y, basis = (t[:size] for t in fit_pade.grid(card))
+        opt = ScheduledAdam(lr=1e-3, b1=0.9, b2=0.9)
+
+        def run():
+            p = fit_pade.seed_params(card)
+            st, outs = opt.init(p), []
+            for _ in range(n):
+                p, st = fit_pade.fit_step(p, st, x, y, basis, 1.0, 1.0, opt)
+                outs.append((p, st))
+            return outs, None
+        return fit_pade.fit_step, run
+    if kind == "feats_of":
+        from lpcnet_tpu_torch.tools import train_codebooks
+        xs = dev((rs.randn(n, size, 8 * 160) * 3000).astype(np.float32))
+        return train_codebooks.feats_of, lambda: (
+            [train_codebooks.feats_of(xs[i]) for i in range(n)], None)
+    from lpcnet_tpu_torch import convert
+    from lpcnet_tpu_torch.models import plc as plc_model
+    from lpcnet_tpu_torch.tools import eval_plc
+    params = convert.load_plc(device=card)
+    xs = dev((rs.randn(n, size, 12, 57) * 0.5).astype(np.float32))
+    return eval_plc.forward, lambda: (
+        [eval_plc.forward(params, xs[i]) for i in range(n)], None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", [0, 1], ids=["small", "large"])
+@pytest.mark.parametrize("case", JIT_SITE_CASES)
+def test_jit_site_graphed_bit_identical_to_eager(card, case, which):
+    """Each jit site's chain of calls, graphed (the first call eager, the
+    second captured, it and the others replays), is bit-identical to the
+    same chain under graphs.disabled(): every output and carried state,
+    and the generator the k-means updates draw from ends in the same
+    state. One capture per signature."""
+    from lpcnet_tpu_torch.utils import graphs
+    step, run = _jit_site(card, case, which)
+    step.clear()
+    graphs.captures.clear()
+    graphs.replays.clear()
+    with graphs.disabled():
+        eager = run()
+    assert not graphs.captures and not graphs.replays
+    graphed = run()
+    assert graphs.captures == {step.name: 1}
+    assert graphs.replays == {step.name: JIT_SITE_CALLS - 1}
+    for k, (e, g) in enumerate(zip(eager[0], graphed[0])):
+        assert _same(e, g), f"{case}: call {k + 1}"
+    assert _same(eager[1], graphed[1]), f"{case}: the generator's state"
+    # a second run replays the graph it made
+    again = run()
+    assert graphs.captures == {step.name: 1}
+    assert graphs.replays == {step.name: 2 * JIT_SITE_CALLS - 1}
+    assert all(_same(e, g) for e, g in zip(eager[0], again[0]))
+    step.clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 1024], ids=["B1", "B1024"])
+def test_temperature_graphed_bit_identical_to_eager(card, batch):
+    """synthesize_temperature on the card, two calls of 2 frames carrying
+    the state: the conditioning jit and the sample step (one capture for
+    the batch size, then a replay per sample) give the bits of the same
+    calls under graphs.disabled(), pcm and every state leaf."""
+    from lpcnet_tpu_torch.utils import graphs
+    offs = (5 * np.arange(batch)) % (len(FEATS) - 4)
+    feats = np.stack([FEATS[o:o + 4] for o in offs])
+    v = Synthesizer(device=card)
+    st0 = v.reset(batch, per_stream_rng=True)
+
+    def run():
+        st, outs = st0, []
+        for i in range(2):
+            st, pcm = v.synthesize_temperature(st, feats[:, 2 * i:2 * i + 2])
+            outs.append((st, pcm))
+        return outs
+
+    with graphs.disabled():
+        eager = run()
+    graphs.captures.clear()
+    graphs.replays.clear()
+    graphed = run()
+    name = "Synthesizer.synthesize_temperature"
+    assert graphs.captures == {name + ".conditions": 1,
+                               name + ".sample_step": 1}
+    # the disabled run made the step's buffers without an eager call on
+    # the card: the first graphed step is eager, the second captured
+    assert graphs.replays == {name + ".conditions": 1,
+                              name + ".sample_step": 2 * 2 * 160 - 1}
+    assert all(_same(e, g) for e, g in zip(eager, graphed))
+    assert torch.isfinite(graphed[-1][1]).all()
+
+
+@pytest.fixture
+def nccl_group(card):
+    """A one-rank NCCL process group in this process."""
+    import socket
+    import torch.distributed as dist
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    yield card
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [2, 4], ids=["B2", "B4"])
+def test_dp_train_step_graphed_over_nccl(nccl_group, batch):
+    """mesh.dp_train_step in a one-rank NCCL group: 3 steps graphed (the
+    first eager, which makes the communicator, the second captured with
+    both all-reduces inside, then a replay) are bit-identical to 3 steps
+    under graphs.disabled() from the same parameters, batch and noise
+    seed: parameters, Adam state, metrics and the generator's state."""
+    from lpcnet_tpu_torch import convert
+    from lpcnet_tpu_torch.models import lpcnet
+    from lpcnet_tpu_torch.parallel import mesh
+    from lpcnet_tpu_torch.training import lpcnet_task
+    from lpcnet_tpu_torch.utils import graphs
+    card = nccl_group
+    cfg = lpcnet.LPCNetConfig(gru_a_units=64, cond_size=32,
+                              embed_sig_size=16, embed_pitch_size=8)
+    params0 = convert.to_device(lpcnet.init_params(
+        torch.Generator().manual_seed(0), cfg), card)
+    opt = lpcnet_task.make_optimizer()
+    batch_ = {k: torch.as_tensor(v, device=card)
+              for k, v in mesh.dryrun_batch(batch, 2, cfg).items()}
+
+    def run():
+        gen = torch.Generator(device=card).manual_seed(1)
+        p, st, outs = params0, opt.init(params0), []
+        for _ in range(3):
+            p, st, m = mesh.dp_train_step(p, st, batch_, cfg, opt, gen)
+            outs.append((p, st, m))
+        return outs, gen.get_state()
+
+    mesh._dp_step.clear()
+    with graphs.disabled():
+        eager = run()
+    graphs.captures.clear()
+    graphs.replays.clear()
+    graphed = run()
+    assert graphs.captures == {"mesh.dp_train_step": 1}
+    assert graphs.replays == {"mesh.dp_train_step": 2}
+    for k, (e, g) in enumerate(zip(eager[0], graphed[0])):
+        assert _same(e, g), f"step {k + 1}"
+    assert torch.equal(eager[1], graphed[1])
+    mesh._dp_step.clear()

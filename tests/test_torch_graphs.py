@@ -226,7 +226,8 @@ def test_jit_captures_once_per_signature(monkeypatch):
     made, pools, eager = [], [], []
     name = "test.cache.step"
 
-    def stand_in_compile(fn, args, name, pool, warmup):
+    def stand_in_compile(fn, args, name, pool, warmup, capture_error_mode):
+        assert capture_error_mode == "global"
         made.append((name, warmup))
         pools.append(pool)
         return _stand_in_step(fn, args, name)
@@ -315,11 +316,13 @@ def test_entry_points_convert_arguments_before_the_graphed_call():
     are converted before the graphed call, never inside it."""
     cases = _tiny_entry_points()
     assert len(cases) == 8
-    # synthesize_temperature stays eager on the card: it has no jit
+    # synthesize_temperature (jitted at lpcnet_tpu/vocoder.py:123) has a jit
+    # of its conditioning; its sample step is a graphs.loop_step per batch
+    # size (tests/test_torch_jit_sites.py)
     voc = cases[0][1].fn.__self__
     assert sorted(k for k, v in vars(voc).items()
                   if isinstance(v, graphs.jit)) == [
-        "_synth", "_synth_streaming", "_synth_teacher"]
+        "_synth", "_synth_streaming", "_synth_teacher", "_temp_conds"]
     for name, step, call in cases:
         assert isinstance(step, graphs.jit) and step.name == name
         got = []
@@ -342,20 +345,26 @@ def test_teacher_shapes_are_checked_before_the_graphed_call():
                                np.zeros((1, 300)), np.zeros((1, 2)))
 
 
-# the modules whose functions run inside the entry points' and the
-# training steps' graphs
+# the modules whose functions run inside the entry points', the training
+# steps' and the other jit sites' graphs (the feature, codec and Burg
+# steps, the k-means updates, the data-parallel step, the tools' steps)
 GRAPHED_MODULES = (
-    ["features", "plc", "dred", "vocoder", "kernels.sample_scan",
-     "kernels.sample_cuda"]
-    + [d + "." + f[:-3] for d in ("ops", "models", "training")
+    ["features", "plc", "dred", "vocoder", "data", "kernels.sample_scan",
+     "kernels.sample_cuda", "parallel.mesh", "tools.eval_plc",
+     "tools.fit_pade", "tools.train_codebooks"]
+    + [d + "." + f[:-3] for d in ("ops", "models", "training", "codec")
        for f in sorted(os.listdir(os.path.join(PKG, d)))
        if f.endswith(".py") and f != "__init__.py"])
 _UPLOADS = ("as_tensor", "tensor", "from_numpy")
 # the functions of those modules that run before a step, never inside one:
-# they make parameters or a KISS99 seed, or load a checkpoint
+# they make parameters, a KISS99 seed, a corpus batch or a fit's grid, load
+# a checkpoint, or build training pairs on the host
 OUTSIDE_STEPS = {"ops.kiss99": {"to_tensor"},
                  "models.rdovae": {"rate_aware_quant_init"},
-                 "training.optim": {"state_from_leaves"}}
+                 "training.optim": {"state_from_leaves"},
+                 "data": {"build_pairs"},
+                 "tools.fit_pade": {"grid"},
+                 "tools.train_codebooks": {"build_corpus"}}
 
 
 def constant_uploads(source: str, module) -> list:
