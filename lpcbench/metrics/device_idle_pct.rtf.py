@@ -1,0 +1,9 @@
+"""device_idle_pct.rtf: 1 - traced device busy time per call over the
+untraced wall time of a window call, percent."""
+from lpcbench import readers
+
+LAYER = "device"
+
+
+def read(run):
+    return readers.idle_pct(run)
