@@ -64,7 +64,7 @@ from .models import lpcnet as lpcnet_model
 from .models import plc as plc_model
 from .ops import burg as burg_ops
 from .ops.tables import device_constant
-from .utils import graphs
+from .utils import graphs, profiling
 
 # energy attenuation after repeated losses (lpcnet_plc.c:292)
 ATT_TABLE = np.array([0, 0, -.2, -.2, -.4, -.4, -.8, -.8, -1.6, -1.6],
@@ -288,7 +288,8 @@ class PLCEngine(_Engine):
             dc_mem, syn_dc = state["dc_mem"], state["syn_dc"]
 
         # --- burg features of incoming audio (valid on good frames)
-        burg36 = burg_ops.burg_cepstral_analysis(pcm_proc)
+        with profiling.span("burg"):
+            burg36 = burg_ops.burg_cepstral_analysis(pcm_proc)
 
         # --- PIPELINED feature pass: advance the extractor on the PREVIOUS
         # frame's output (good streams' output was their input, lost/blend
@@ -297,69 +298,74 @@ class PLCEngine(_Engine):
         # features. ONE 2-frame analysis call: frame 1 = previous output
         # (advances the kept state), frame 2 = current input (features
         # only); the kept state is the mid state after frame 1.
-        _, featsg, _, enc_mid = F.compute_features(
-            state["enc"], torch.cat([state["prev_out"], pcm_proc], dim=-1),
-            mode="single", return_mid=True)
+        with profiling.span("features", joined=True):
+            _, featsg, _, enc_mid = F.compute_features(
+                state["enc"], torch.cat([state["prev_out"], pcm_proc], dim=-1),
+                mode="single", return_mid=True)
         featg = featsg[:, 1, :NB_FEATURES]
 
-        # --- FEC availability (get_fec_or_pred, lpcnet_plc.c:147-166)
-        has_fec = ((state["fec_read"] < state["fec_fill"])
-                   & (state["fec_skip"] == 0) & lost)
-        rd = torch.clamp(state["fec_read"], 0, PLC_MAX_FEC - 1).long()
-        fec_feat = state["fec"][torch.arange(B, device=self.device), rd]
+        with profiling.span("plc_net", joined=True):
+            # --- FEC availability (get_fec_or_pred, lpcnet_plc.c:147-166)
+            has_fec = ((state["fec_read"] < state["fec_fill"])
+                       & (state["fec_skip"] == 0) & lost)
+            rd = torch.clamp(state["fec_read"], 0, PLC_MAX_FEC - 1).long()
+            fec_feat = state["fec"][torch.arange(B, device=self.device), rd]
 
-        # --- ONE stacked PLC-net step for both the lost/blend input and
-        # the good-path input
-        zeros36 = self._zeros(B, 2 * NB_BANDS)
-        zeros20 = self._zeros(B, NB_FEATURES)
-        one = torch.ones((B, 1), dtype=torch.float32, device=self.device)
-        in_blend = torch.cat([burg36, zeros20, one], dim=-1)
-        in_lost = torch.cat([zeros36, zeros20, 0 * one], dim=-1)
-        in_fec = torch.cat([zeros36, fec_feat, -one], dim=-1)
-        blend = state["blend"] & ~lost
-        x_lb = torch.where(lost[:, None],
-                           torch.where(has_fec[:, None], in_fec, in_lost),
-                           in_blend)
-        in_good = torch.cat([burg36, featg, one], dim=-1)
+            # --- ONE stacked PLC-net step for both the lost/blend input
+            # and the good-path input
+            zeros36 = self._zeros(B, 2 * NB_BANDS)
+            zeros20 = self._zeros(B, NB_FEATURES)
+            one = torch.ones((B, 1), dtype=torch.float32, device=self.device)
+            in_blend = torch.cat([burg36, zeros20, one], dim=-1)
+            in_lost = torch.cat([zeros36, zeros20, 0 * one], dim=-1)
+            in_fec = torch.cat([zeros36, fec_feat, -one], dim=-1)
+            blend = state["blend"] & ~lost
+            x_lb = torch.where(lost[:, None],
+                               torch.where(has_fec[:, None], in_fec, in_lost),
+                               in_blend)
+            in_good = torch.cat([burg36, featg, one], dim=-1)
 
-        # restore plc state from the copy on blend (lpcnet_plc.c:217)
-        copies = state["plc_copies"]
-        plc_net_in = {k: torch.where(blend[:, None], copies[k][:, -1], cur)
-                      for k, cur in state["plc_net"].items()}
-        # push a copy before prediction on lost frames
-        # (lpcnet_plc.c:305-314)
-        new_copies = {
-            k: torch.where(lost[:, None, None],
-                           torch.cat([plc_net_in[k][:, None], cp[:, :-1]],
-                                     dim=1), cp)
-            for k, cp in copies.items()}
+            # restore plc state from the copy on blend (lpcnet_plc.c:217)
+            copies = state["plc_copies"]
+            plc_net_in = {k: torch.where(blend[:, None], copies[k][:, -1],
+                                         cur)
+                          for k, cur in state["plc_net"].items()}
+            # push a copy before prediction on lost frames
+            # (lpcnet_plc.c:305-314)
+            new_copies = {
+                k: torch.where(lost[:, None, None],
+                               torch.cat([plc_net_in[k][:, None], cp[:, :-1]],
+                                         dim=1), cp)
+                for k, cp in copies.items()}
 
-        st2 = {k: torch.cat([plc_net_in[k], state["plc_net"][k]], dim=0)
-               for k in plc_net_in}
-        plc2, pred2 = plc_model.step(self.plc_params, st2,
-                                     torch.cat([x_lb, in_good], dim=0),
-                                     self.plc_cfg)
-        plc_lb = {k: v[:B] for k, v in plc2.items()}
-        plc_g = {k: v[B:] for k, v in plc2.items()}
-        pred = pred2[:B]
+            st2 = {k: torch.cat([plc_net_in[k], state["plc_net"][k]], dim=0)
+                   for k in plc_net_in}
+            plc2, pred2 = plc_model.step(self.plc_params, st2,
+                                         torch.cat([x_lb, in_good], dim=0),
+                                         self.plc_cfg)
+            plc_lb = {k: v[:B] for k, v in plc2.items()}
+            plc_g = {k: v[B:] for k, v in plc2.items()}
+            pred = pred2[:B]
 
-        # concealment features: FEC frame or prediction, with c0
-        # attenuation (lpcnet_plc.c:316-319)
-        lc = state["loss_count"]
-        feat_lost = _conceal_features(
-            torch.where(has_fec[:, None], fec_feat, pred), _attenuation(lc))
+            # concealment features: FEC frame or prediction, with c0
+            # attenuation (lpcnet_plc.c:316-319)
+            lc = state["loss_count"]
+            feat_lost = _conceal_features(
+                torch.where(has_fec[:, None], fec_feat, pred),
+                _attenuation(lc))
 
-        # --- ONE synthesis launch for all three paths, selected per row by
-        # the conditioning features and the forcing window:
-        #   lost  rows free-run from the concealment features,
-        #   good  rows teacher-force the whole frame on their input,
-        #   blend rows free-run the first half (the continuation used by
-        #         the cross-fade) and force the second half on the input.
-        feats = torch.where(
-            lost[:, None], feat_lost,
-            _pad36(torch.where(blend[:, None], pred, featg)))
-        new_fnet, cond = lpcnet_model.frame_net_step(
-            self.params, self.tables, state["fnet"], feats, cfg)
+            # --- ONE synthesis launch for all three paths, selected per row
+            # by the conditioning features and the forcing window:
+            #   lost  rows free-run from the concealment features,
+            #   good  rows teacher-force the whole frame on their input,
+            #   blend rows free-run the first half (the continuation used by
+            #         the cross-fade) and force the second half on the input.
+            feats = torch.where(
+                lost[:, None], feat_lost,
+                _pad36(torch.where(blend[:, None], pred, featg)))
+        with profiling.span("conditioning", joined=True):
+            new_fnet, cond = lpcnet_model.frame_net_step(
+                self.params, self.tables, state["fnet"], feats, cfg)
         force_from = torch.where(
             lost, cfg.frame_size,
             torch.where(blend, TRAINING_OFFSET, 0)).to(torch.int32)

@@ -56,6 +56,8 @@ from typing import Any, Callable, Dict, Hashable, List, Optional, Tuple
 
 import torch
 
+from . import profiling
+
 # compile_step's eager calls of fn on a side stream before its capture: the
 # first call builds whatever the call makes once (cuBLAS handles, cuFFT
 # plans, the kernels' libraries, device constants, the tables' operands),
@@ -154,31 +156,78 @@ class CompiledStep:
     graph's static inputs, replays the graph and returns clones of its
     outputs. `replays` counts its replays (the module's `replays` those of
     every graph of its name); `capture_s` is the host time of the capture
-    (the graph's instantiation included, its warm-up calls not)."""
+    (the graph's instantiation included, its warm-up calls not); `spans`
+    the span events the graph records (profiling.span).
+
+    Untraced, a replay appends its host ms in three phases (copy_in: the
+    arguments' check and copies, launch: graph.replay(), clone_out) to
+    profiling.replay_host[name]. While torch.profiler records, the phases
+    are record_function ranges ("lpcnet/<name>/copy_in", ...). A call
+    first reads the spans of the untraced replay before it into
+    profiling.span_ms (profiling.read_spans, which never waits; outside
+    the three phases) when that replay is the profiling.SPAN_READ_EVERY-th
+    since the last read, or the call is traced; traced replays are not
+    read."""
 
     def __init__(self, graph: torch.cuda.CUDAGraph, args: Tuple, out: Any,
-                 name: str = "compile_step", capture_s: float = 0.0):
+                 name: str = "compile_step", capture_s: float = 0.0,
+                 spans: profiling.SpanEvents = ()):
         self.graph, self.args, self.out, self.name = graph, args, out, name
         self.capture_s = capture_s
+        self.spans = list(spans)
         self.key = signature(args)
         self._inputs = [x for x in flatten(args)[0]
                         if isinstance(x, torch.Tensor)]
         self._out_leaves, self._out_structure = flatten(out)
         self.replays = 0
+        self._unread = 0       # untraced replays since the last read
 
-    @torch.no_grad()
-    def __call__(self, *args):
+    def _copy_in(self, args) -> None:
         if signature(args) != self.key:
             raise ValueError(f"{self.name}: a compiled step takes arguments "
                              f"of the shapes it was captured with")
         given = [x for x in flatten(args)[0] if isinstance(x, torch.Tensor)]
         for static, x in zip(self._inputs, given):
             static.copy_(x)
+
+    def _launch(self) -> None:
         self.graph.replay()
         self.replays += 1
         replays[self.name] += 1
+
+    def _clone_out(self):
         return unflatten(self._out_structure,
                          [_clone(x) for x in self._out_leaves])
+
+    @torch.no_grad()
+    def __call__(self, *args):
+        traced = profiling.recording()
+        if self._unread and (traced or self._unread
+                             >= profiling.SPAN_READ_EVERY):
+            self._unread = 0
+            profiling.read_spans(self.name, self.spans)
+        if traced:
+            return self._traced(args)
+        t0 = time.perf_counter()
+        self._copy_in(args)
+        t1 = time.perf_counter()
+        self._launch()
+        self._unread += bool(self.spans)
+        t2 = time.perf_counter()
+        out = self._clone_out()
+        t3 = time.perf_counter()
+        profiling.replay_host[self.name].append(
+            (1e3 * (t1 - t0), 1e3 * (t2 - t1), 1e3 * (t3 - t2)))
+        return out
+
+    def _traced(self, args):
+        with profiling.host_range(self.name, "copy_in"):
+            self._copy_in(args)
+        with profiling.host_range(self.name, "launch"):
+            self._launch()
+        self._unread = 0
+        with profiling.host_range(self.name, "clone_out"):
+            return self._clone_out()
 
 
 def graph_nodes(graph: torch.cuda.CUDAGraph) -> int:
@@ -240,7 +289,7 @@ def compile_step(fn: Callable, example_args: Tuple,
     if warmup:
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), profiling.entry_point(name):
             for _ in range(warmup):
                 fn(*static)
         torch.cuda.current_stream(dev).wait_stream(side)
@@ -248,17 +297,23 @@ def compile_step(fn: Callable, example_args: Tuple,
     for x in flatten(example_args)[0]:
         if isinstance(x, torch.Generator) and x.device.type == "cuda":
             graph.register_generator_state(x)
+    spans: profiling.SpanEvents = []
     t0 = time.perf_counter()
     try:
+        # recorded: the span events that the capture's nodes refer to,
+        # alive until the capture has ended
         with torch.cuda.graph(graph, pool=pool,
-                              capture_error_mode=capture_error_mode):
+                              capture_error_mode=capture_error_mode), \
+                profiling.entry_point(name, spans) as recorded:
             out = fn(*static)
+        del recorded
         if keep_graph:
             graph.instantiate()
     except Exception as e:
         raise _capture_error(name, e) from e
     captures[name] += 1
-    return CompiledStep(graph, static, out, name, time.perf_counter() - t0)
+    return CompiledStep(graph, static, out, name, time.perf_counter() - t0,
+                        spans)
 
 
 class jit:
@@ -301,16 +356,21 @@ class jit:
     def __call__(self, *args):
         dev = _device(args, self.name)
         if is_disabled() or dev is None or dev.type != "cuda":
-            return self.fn(*args)
+            with profiling.entry_point(self.name):
+                return self.fn(*args)
         key = signature(args)
         step = self.steps.get(key)
         if step is None:
             n = self._calls.get(key, 0) + 1
             if n < CAPTURE_CALL:
-                out = self.fn(*args)
+                with profiling.entry_point(self.name):
+                    out = self.fn(*args)
                 self._calls[key] = n
                 return out
-            if self.pool is None:
+            if not self.steps:
+                # no graph of this jit holds the pool: the graph of a
+                # failed capture releases it whenever it is freed, and a
+                # released pool cannot take another capture
                 self.pool = torch.cuda.graph_pool_handle()
             step = compile_step(self.fn, args, self.name, self.pool,
                                 warmup=0,

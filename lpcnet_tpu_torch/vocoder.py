@@ -40,7 +40,7 @@ from .device import resolve_device
 from .kernels import sample_cuda, sample_dotprod, sample_scan
 from .models import lpcnet
 from .ops import kiss99
-from .utils import graphs
+from .utils import graphs, profiling
 
 TABLE_TYPES = ("f32", "bf16")
 BACKENDS = ("auto", "dotprod")
@@ -134,7 +134,8 @@ class Synthesizer:
 
     @torch.no_grad()
     def _synthesize(self, state, features):
-        conds = self.conditions(features)
+        with profiling.span("conditioning"):
+            conds = self.conditions(features)
         if self.backend == "dotprod":
             return sample_dotprod.synthesize_frames_dotprod(
                 self.tables, self.qtables, state, conds, self.cfg)

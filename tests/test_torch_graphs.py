@@ -259,6 +259,35 @@ def test_jit_captures_once_per_signature(monkeypatch):
     assert step._calls == {}
 
 
+def test_jit_takes_a_fresh_pool_until_a_capture_holds_one(monkeypatch):
+    """A capture that fails leaves the jit without a graph, and its graph
+    releases the pool whenever it is freed: the next capture takes a new
+    pool; once a graph holds one, later captures share it."""
+    handles, pools = iter(range(1, 10)), []
+
+    def stand_in_compile(fn, args, name, pool, warmup, capture_error_mode):
+        pools.append(pool)
+        if len(pools) == 1:
+            raise RuntimeError(f"{name}: the call could not be captured")
+        return _stand_in_step(fn, args, name)
+
+    monkeypatch.setattr(graphs, "_device", lambda args, name: torch.device(
+        "cuda", 0))
+    monkeypatch.setattr(graphs, "compile_step", stand_in_compile)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle",
+                        lambda: next(handles))
+    step = graphs.jit(_pass_through_fn, "test.pool.step")
+    st = {"a": torch.zeros(2), "keep": torch.ones(2)}
+    x = torch.ones(2, 4)
+    step(st, x)
+    with pytest.raises(RuntimeError, match="could not be captured"):
+        step(st, x)
+    assert step.steps == {}
+    for y in (x, x, torch.ones(2, 6), torch.ones(2, 6)):
+        step(st, y)
+    assert pools == [1, 2, 2] and len(step.steps) == 2
+
+
 def _tiny_entry_points():
     """(name, the jit, a call of the public method with numpy arguments)
     for every graphed entry point, on the CPU with the fn of each jit

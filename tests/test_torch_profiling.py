@@ -1,8 +1,8 @@
-"""The port's tracing and stage timing (lpcnet_tpu_torch/utils/
-profiling.py): parse_trace_utilization on a hand-written chrome trace of
-Kineto's event layout gives known numbers exactly; StageTimer's summary
-has the JAX package's keys; trace() on the CPU writes a readable trace;
-the sample kernels' names are those of the CUDA sources."""
+"""The port's trace reading (lpcnet_tpu_torch/utils/profiling.py):
+parse_trace_utilization on a hand-written chrome trace of Kineto's event
+layout gives known numbers exactly; trace() on the CPU writes a readable
+trace; the sample kernels' names are those of the CUDA sources. Its spans
+and replay records: tests/test_torch_spans.py."""
 import gzip
 import json
 import os
@@ -12,7 +12,6 @@ import time
 import pytest
 import torch
 
-from lpcnet_tpu.utils import profiling as j_prof
 from lpcnet_tpu_torch.utils import profiling
 
 CSRC = os.path.join(os.path.dirname(__file__), os.pardir, "lpcnet_tpu_torch",
@@ -88,30 +87,6 @@ def test_sample_kernel_names_are_the_sources_entry_points():
             names |= set(re.findall(r"__global__\s+void\s+(?:__launch_bounds"
                                     r"__\([^)]*\)\s+)?(\w+)", fh.read()))
     assert names == set(profiling.SAMPLE_KERNELS)
-
-
-def test_stage_timer_summary_has_the_jax_keys():
-    """StageTimer.summary() has JAX's schema (total_s, count, mean_ms per
-    stage); a CPU tensor or device as the fence waits for nothing."""
-    ours, theirs = profiling.StageTimer(), j_prof.StageTimer()
-    for t in (ours, theirs):
-        with t.stage("a"):
-            pass
-        t.add("b", 0.5, n=2)
-    with ours.stage("a", fence=torch.zeros(3)):
-        pass
-    with ours.stage("a", fence="cpu"):
-        pass
-    s, j = ours.summary(), theirs.summary()
-    assert s.keys() == j.keys() == {"a", "b"}
-    for k in s:
-        assert s[k].keys() == j[k].keys()
-    assert s["a"]["count"] == 3 and s["b"] == j["b"] == {
-        "total_s": 0.5, "count": 2, "mean_ms": 250.0}
-    assert json.loads(ours.report()) == s
-    with pytest.raises(TypeError):
-        with ours.stage("c", fence=3):
-            pass
 
 
 def test_trace_on_the_cpu_writes_a_readable_trace(tmp_path):
