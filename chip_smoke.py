@@ -71,12 +71,21 @@ Phases, each fatal on failure:
                on the golden speech tiled over the streams, per-stream loss
                flags (20%, runs of 1-3 frames): B=1024 x 50 frames and B=1
                x 50 (flat sampler), B=1024 x 10 (base). Exactly one
-               synth_samples launch per 10-ms step and no other kernel;
-               output finite, int16 range, good rows equal to their input.
+               synth_samples launch and one Burg kernel launch
+               (csrc/burg_cepstrum.cu) per 10-ms step and no other sample
+               kernel; output finite, int16 range, good rows equal to their
+               input.
+  3b. burg   - Burg's cepstral analysis (ops/burg.py) at B=1 and B=1024
+               frames of the golden speech: the kernel
+               (csrc/burg_cepstrum.cu, one launch a call) against the plain
+               PyTorch version on the card, max |d| <= BURG_TOL; then the
+               device time of each per call, both replayed from CUDA graphs
+               (BURG_REPS kernel launches in one graph, one plain call of
+               ~1700 kernels in another), as the PLC step's graph runs them.
   4. noncausal - NonCausalPLCEngine(...).run, B=1024 x 10 frames (plan
                T) and B=1 x 3 (plan L): 4 synth_samples and 3
                teacher_advance launches per step, each teacher_advance call
-               one launch.
+               one launch; one Burg kernel launch per step.
   4b. modes  - Synthesizer.synthesize_streaming, B=1024 x 10 frames (one
                free-run synth_samples launch per frame; the first
                `lookahead` frames are silence and leave the sample state
@@ -87,7 +96,8 @@ Phases, each fatal on failure:
                flags, B=1024 x 10 frames and B=1 x 10 (the single stream
                is made to lose frames 3 and 4): exactly 8
                synth_samples launches per step (each with per-stream active
-               counts) and no teacher_advance; output finite, int16 range,
+               counts), one Burg kernel launch and no teacher_advance;
+               output finite, int16 range,
                good rows equal to their input, blend rows in their second
                half.
   4d. dred-plc - PLCEngine.step at B=1024 and B=1 over the speech of 2d
@@ -250,8 +260,8 @@ Phases, each fatal on failure:
                bit-identical; ms per frame eager and graphed, the step's
                capture s. The other jit sites at their callers' sizes
                (jit_site_cases: the feature step of the bench, the encode
-               command and dump-data test, the four codec steps, Burg of
-               a chunk, the Lloyd pass and kmeans_multi's update at the
+               command and dump-data test, the four codec steps, the
+               Lloyd pass and kmeans_multi's update at the
                codebooks' sizes, fit_pade's step, train_codebooks'
                feats_of, eval_plc's forward), JIT_SITE_CALLS calls eager
                and graphed, bit-identical (the k-means generator too);
@@ -425,7 +435,10 @@ GATE_FRAMES = 1     # frames of each synthesis run held against the plain one
 TIME_FRAMES = 10    # frames per timed kernel call
 NA, NB, NL, FS = 384, 16, 256, 160
 SOURCES = ("sample_frame", "sample_frame_opt", "synth_samples",
-           "teacher_advance")
+           "teacher_advance", "burg_cepstrum")
+# phase 3b: frames a call, kernel launches in the timed graph, the kernel's
+# tolerance against the plain version (tests/test_torch_cuda.py's BURG_TOL)
+BURG_BATCHES, BURG_REPS, BURG_TOL = (1, 1024), 100, 1e-4
 # multiply-adds per stream and sample: GRU-A recurrent, wi_b, GRU-B
 # recurrent; and the dual-FC that only the sample loop has
 GRU_MACS = NA * 3 * NA + NA * 3 * NB + NB * 3 * NB
@@ -635,7 +648,8 @@ def main() -> int:
         return fail(f"no lpcnet_tpu_torch package beside {__file__}")
     sys.path.insert(0, REPO)
     from lpcnet_tpu_torch import convert, features, plc, verify
-    from lpcnet_tpu_torch.kernels import _build, sample_cuda, sample_scan
+    from lpcnet_tpu_torch.kernels import (_build, burg_cuda, sample_cuda,
+                                          sample_scan)
     from lpcnet_tpu_torch.models import lpcnet as lpcnet_model
     from lpcnet_tpu_torch.models import plc as plc_model
     from lpcnet_tpu_torch.ops import burg
@@ -653,6 +667,7 @@ def main() -> int:
         for counts in (sample_cuda.launches, sample_cuda.plan_launches):
             for k in counts:
                 counts[k] = 0
+        burg_cuda.launches = 0
         graphs.captures.clear()
         graphs.replays.clear()
 
@@ -1010,7 +1025,7 @@ def main() -> int:
     # ---- 3. the PLC path: PLCEngine.run, one K3 launch per step
     phase("3 plc")
     plc_params = convert.load_plc(device=dev)
-    calls, plc_runs, engines = {}, {}, {}
+    calls, plc_runs, engines, burg_runs = {}, {}, {}, {}
     for variant, B, frames in PLC_PATHS:
         eng = plc.PLCEngine(params, plc_params, device=dev, variant=variant)
         pcm_in, lost = tiled_speech(B, frames), loss_flags(B, frames)
@@ -1029,7 +1044,8 @@ def main() -> int:
         blend = np.concatenate([np.zeros((B, 1), bool), lost[:, :-1]], 1) \
             & ~lost
         good = np.repeat(~lost & ~blend, FS, axis=1)
-        print(f"[plc] {tag} x {frames} frames: launches {counts}; lost "
+        print(f"[plc] {tag} x {frames} frames: launches {counts}, Burg "
+              f"{burg_cuda.launches}; lost "
               f"{lost.mean():.3f} of the frames, blend {blend.mean():.3f}; "
               f"out {o.shape}, finite {bool(np.isfinite(o).all())}, max "
               f"|out| {np.abs(o).max()}, good rows equal input "
@@ -1038,6 +1054,10 @@ def main() -> int:
                 or sum(counts.values()) != frames:
             return fail(f"{tag}: expected {frames} tf_{variant} launches and"
                         f" nothing else, got {counts}")
+        if burg_cuda.launches != frames:
+            return fail(f"{tag}: expected {frames} Burg kernel launches (one"
+                        f" a step), got {burg_cuda.launches}")
+        burg_runs[(variant, B)] = burg_cuda.launches
         plans[("tf_" + variant, B)] = expect_plan(tag, B, frames)
         if o.shape != (B, frames * FS) or not np.isfinite(o).all() \
                 or np.abs(o).max() > 32767:
@@ -1051,6 +1071,9 @@ def main() -> int:
         print(f"[plc] {tag}: {wall * 1e3 / frames:.4f} ms per step (host "
               f"clock, synchronised at the end), RT factor "
               f"{B * frames * 0.01 / wall:.1f}x [{card}]")
+
+    phase("3b burg")
+    burg_ms = burg_phase(dev, card)
 
     # ---- 4. the non-causal path: 4 K3 and 3 K4 launches per step
     phase("4 noncausal")
@@ -1074,7 +1097,8 @@ def main() -> int:
         clean = ~lost.any(1)
         delayed_ok = bool((o[clean, 80:] == pcm_in[clean, :-80]).all())
         tag = f"NonCausalPLCEngine B={B}"
-        print(f"[noncausal] {tag} x {frames} frames: launches {counts}; out "
+        print(f"[noncausal] {tag} x {frames} frames: launches {counts}, "
+              f"Burg {burg_cuda.launches}; out "
               f"{o.shape}, finite {bool(np.isfinite(o).all())}, max |out| "
               f"{np.abs(o).max()}; {int(clean.sum())} streams without a loss"
               f" equal their input delayed by 80 samples: {delayed_ok}")
@@ -1083,6 +1107,9 @@ def main() -> int:
                 or sum(counts.values()) != 7 * frames:
             return fail(f"{tag}: expected {4 * frames} tf_flat and "
                         f"{3 * frames} teacher launches, got {counts}")
+        if burg_cuda.launches != frames:
+            return fail(f"{tag}: expected {frames} Burg kernel launches (one"
+                        f" a step), got {burg_cuda.launches}")
         plans[("teacher", B)] = expect_plan(tag, B, 7 * frames)
         if o.shape != (B, frames * FS) or not np.isfinite(o).all() \
                 or np.abs(o).max() > 32767 or not delayed_ok:
@@ -1187,7 +1214,8 @@ def main() -> int:
             & (np.arange(frames * FS) % FS >= FS // 2)[None, :]
         good_ok = bool((o[good] == pcm_in[good]).all())
         blend_ok = bool((o[half2] == pcm_in[half2]).all())
-        print(f"[strict] {tag} x {frames} frames: launches {counts}; lost "
+        print(f"[strict] {tag} x {frames} frames: launches {counts}, Burg "
+              f"{burg_cuda.launches}; lost "
               f"{lost.mean():.3f} of the frames, blend {blend.mean():.3f}; "
               f"out {o.shape}, finite {bool(np.isfinite(o).all())}, max "
               f"|out| {np.abs(o).max()}, good rows equal input {good_ok}, "
@@ -1196,6 +1224,9 @@ def main() -> int:
                 or sum(counts.values()) != 8 * frames:
             return fail(f"{tag}: expected {8 * frames} tf_flat launches (8 "
                         f"per step) and nothing else, got {counts}")
+        if burg_cuda.launches != frames:
+            return fail(f"{tag}: expected {frames} Burg kernel launches (one"
+                        f" a step), got {burg_cuda.launches}")
         expect_plan(tag, B, 8 * frames)
         if o.shape != (B, frames * FS) or not np.isfinite(o).all() \
                 or np.abs(o).max() > 32767:
@@ -1641,12 +1672,111 @@ def main() -> int:
         "bound_ms_b1": teacher_bound_ms(1, FS)[0],
         "noncausal_step_ms": nc_step_ms[big],
         "noncausal_step_ms_b1": nc_step_ms[1], **plan_keys("teacher")})
+    big_b = BURG_BATCHES[-1]
+    kernels.append({
+        "name": "burg_cepstrum", "route": "cuda",
+        "source": "lpcnet_tpu_torch/csrc/burg_cepstrum.cu",
+        "replaces": None, "launches": burg_runs[("flat", big)],
+        "launches_b1": burg_runs[("flat", 1)],
+        "launches_base": burg_runs[("base", big)],
+        "max_abs_err": max(burg_ms[b]["max_abs_err"] for b in BURG_BATCHES),
+        "tolerance": f"{BURG_TOL} absolute (plain version on the card)",
+        "ms": burg_ms[big_b]["ms"], "plain_ms": burg_ms[big_b]["plain_ms"],
+        "bound_ms": burg_ms[big_b]["bound_ms"],
+        "bound_by": burg_ms[big_b]["bound_by"],
+        "roofline_ms": burg_ms[big_b]["roofline_ms"],
+        "roofline_by": burg_ms[big_b]["roofline_by"], "library_ms": None,
+        "batch": big_b, "ms_b1": burg_ms[1]["ms"],
+        "plain_ms_b1": burg_ms[1]["plain_ms"],
+        "bound_ms_b1": burg_ms[1]["bound_ms"],
+        "roofline_ms_b1": burg_ms[1]["roofline_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+# float32 operations of Burg's cepstral analysis per half-frame, what the
+# function needs (a multiply-add is two): pre-emphasis 79 x 2; the 17
+# correlations, 79 + sum(79 - k, k = 1..16) multiply-adds; the 16 steps of
+# the recursion (src/burg.c), 14 n + 6 multiply-adds and 6 more operations
+# at step n; the residual energy; the impulse's 16 products; the direct
+# DFT of the 17 taps into 160 bins and 1 / (|X / 320|^2 + 1e-9), 7 more
+# a bin; log10(1e-2 + E), the follower and the 18 x 18 DCT. The band fold
+# counts at the band weights that are not zero (burg_flops): each bin
+# feeds at most two bands.
+BURG_HALF_FLOPS = (2 * 79 + 2 * (79 + sum(79 - k for k in range(1, 17)))
+                   + sum(28 * n + 18 for n in range(16)) + 68 + 16
+                   + 160 * (2 * 2 * 17 + 7) + 2 * 18 + 5 * 18
+                   + 2 * 18 * 18 + 19)
+# bytes of a frame in and out, and of the tables, read once a launch
+BURG_BYTES, BURG_TABLE_BYTES = 4 * (160 + 36), 4 * (16 + 640 + 2880 + 18 + 324)
+# The bound that binds: the dependent chain of one half-frame's warp,
+# ~6,800 cycles (FP32 operations 4 cycles, shuffles ~25; ~4,500 of them the
+# 16-step recursion) at the H100's 1.98 GHz. Every frame's CTA runs at once
+# up to ~4,000 frames, so it holds at B=1 and at B=1024 alike.
+BURG_LATENCY_MS = 6800 / 1.98e9 * 1e3
+
+
+def burg_flops() -> int:
+    """float32 operations of one frame: two half-frames, the band fold at
+    its nonzero weights (a multiply-add each, then the 18 band scales and
+    the gain), then the 36 sums and differences."""
+    from lpcnet_tpu_torch.ops.tables import BAND_INTERP
+    fold = 2 * int(np.count_nonzero(BAND_INTERP)) + 18 + 2
+    return 2 * (BURG_HALF_FLOPS + fold) + 54
+
+
+def burg_phase(dev, card) -> dict:
+    """Phase 3b: ops/burg.burg_cepstral_analysis on the card, kernel
+    against plain version at each of BURG_BATCHES frames of the golden
+    speech, then the device ms per call of each, replayed from a CUDA
+    graph (torch.cuda.graph): the kernel's BURG_REPS launches in one, one
+    plain call in another. Returns {batch: {...}}; raises where the
+    kernel does not launch once a call or leaves BURG_TOL."""
+    import torch
+    from lpcnet_tpu_torch.kernels import burg_cuda
+    from lpcnet_tpu_torch.ops import burg
+    out = {}
+    for B in BURG_BATCHES:
+        x = torch.as_tensor(tiled_speech(B, 1), device=dev)
+        n0 = burg_cuda.launches
+        got = burg.burg_cepstral_analysis(x)
+        if burg_cuda.launches != n0 + 1:
+            raise RuntimeError(f"burg B={B}: {burg_cuda.launches - n0} "
+                               f"kernel launches, expected 1")
+        want = burg.burg_cepstral_analysis_plain(x)
+        d = float((got - want).abs().max())
+        captured = {}
+        for name, fn, reps in (
+                ("kernel", burg.burg_cepstral_analysis, BURG_REPS),
+                ("plain", burg.burg_cepstral_analysis_plain, 1)):
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                for _ in range(reps):
+                    fn(x)
+            captured[name] = (g, reps)
+        ms = {k: cuda_ms(g.replay, 20) / reps
+              for k, (g, reps) in captured.items()}
+        roof, roof_by = _bound(B * burg_flops(),
+                               B * BURG_BYTES + BURG_TABLE_BYTES)
+        bound, bound_by = max((roof, roof_by),
+                              (BURG_LATENCY_MS, "dependent latency"))
+        out[B] = {"max_abs_err": d, "ms": ms["kernel"],
+                  "plain_ms": ms["plain"], "bound_ms": bound,
+                  "bound_by": bound_by, "roofline_ms": roof,
+                  "roofline_by": roof_by}
+        print(f"[burg] B={B}: max |kernel - plain| {d:.3g} (tolerance "
+              f"{BURG_TOL}); per call, replayed from a graph: kernel "
+              f"{ms['kernel'] * 1e3:.2f} us, plain {ms['plain']:.4f} ms; "
+              f"bound {bound * 1e3:.4f} us ({bound_by}; the roofline's "
+              f"{roof * 1e3:.4f} us, {roof_by}, does not bind) [{card}]")
+        if not d <= BURG_TOL:
+            raise RuntimeError(f"burg B={B}: the kernel is {d} from the "
+                               f"plain version, beyond {BURG_TOL}")
+    return out
 
 
 def dred_phase(dev, card) -> dict:
@@ -1758,13 +1888,14 @@ def dred_plc_phase(dev, card, dred_out, params, plc_params, zero_counts,
     loss_flags, at each batch of dred_out: before each step, every lost
     stream queues (fec_add, the reference's lpcnet_plc_fec_add) the
     features of that frame from the newest DRED payload that covers it.
-    Gates: one K3 launch per step and nothing else, under the batch's plan;
+    Gates: one K3 launch per step and nothing else, under the batch's plan,
+    and one Burg kernel launch per step;
     some lost frames concealed from DRED features; good rows equal their
     input. Returns ms per step, launches and FEC frames per batch. Raises
     RuntimeError on a failed gate."""
     import torch
     from lpcnet_tpu_torch import plc
-    from lpcnet_tpu_torch.kernels import sample_cuda
+    from lpcnet_tpu_torch.kernels import burg_cuda, sample_cuda
     out = {}
     for B, d in dred_out.items():
         T = d["frames"]
@@ -1798,7 +1929,8 @@ def dred_plc_phase(dev, card, dred_out, params, plc_params, zero_counts,
             & ~lost
         good = np.repeat(~lost & ~blend, FS, axis=1)
         good_ok = bool((o[good] == pcm_in[good]).all())
-        print(f"[dred-plc] {tag} x {T} frames: launches {counts}; lost "
+        print(f"[dred-plc] {tag} x {T} frames: launches {counts}, Burg "
+              f"{burg_cuda.launches}; lost "
               f"{int(lost.sum())} frames, {n_fec} of them concealed from "
               f"DRED features (gate > 0); out finite "
               f"{bool(np.isfinite(o).all())}, max |out| {np.abs(o).max()}, "
@@ -1808,6 +1940,9 @@ def dred_plc_phase(dev, card, dred_out, params, plc_params, zero_counts,
         if counts["tf_flat"] != T or sum(counts.values()) != T:
             raise RuntimeError(f"{tag}: expected {T} tf_flat launches and "
                                f"nothing else, got {counts}")
+        if burg_cuda.launches != T:
+            raise RuntimeError(f"{tag}: expected {T} Burg kernel launches "
+                               f"(one a step), got {burg_cuda.launches}")
         expect_plan(tag, B, T)
         if not (n_fec > 0 and good_ok and np.isfinite(o).all()
                 and np.abs(o).max() <= 32767):
@@ -3334,7 +3469,7 @@ def graphs_phase(dev, card, params, plc_params, zero_counts) -> dict:
     # synthesize_temperature: its conditioning jit and its sample step
     # captured once per batch size and replayed FS times per frame
     out.update(temperature_lines(dev, card, params))
-    # the other jit sites: the feature, codec and Burg steps, the k-means
+    # the other jit sites: the feature and codec steps, the k-means
     # updates and the tools' steps
     out.update(jit_site_lines(dev, card))
 
@@ -3523,10 +3658,6 @@ def jit_site_cases(dev):
             return step, args, lambda a, o: a[:1] + (o[-1],) + a[2:], None
         cases.append((f"data.{kind}", f"B={B} x {S} superframes", make))
 
-    def make_burg():
-        frames = dev_(rs.randn(n, CHUNK_FRAMES, FS) * 3000)
-        return data.burg_step, [(frames[i],) for i in range(n)], None, None
-    cases.append(("data.burg_step", f"{CHUNK_FRAMES} frames", make_burg))
     # a pass at the codebooks' full sizes over a corpus of VQ_ROWS rows
     for multi, K in ((False, 1024), (True, 4096)):
         def make_vq(multi=multi, K=K):

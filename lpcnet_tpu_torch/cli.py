@@ -531,11 +531,12 @@ def _dump_test(args, pcm: np.ndarray, cbs, dev) -> int:
     no augmentation, CHUNK_FRAMES frames per call. test and btest run the
     per-frame pitch path (process_single_frame, dump_data.c:283), qtest
     the superframe path quantized through the codec (:288); btest puts
-    each frame's Burg cepstra first, [burg36 | feat36]. The feature step,
-    the encode and Burg are jit entry points (data.py), one call of each
-    per chunk."""
+    each frame's Burg cepstra first, [burg36 | feat36]. The feature step
+    and the encode are jit entry points (data.py); Burg is one kernel
+    launch on the card. Each runs once per chunk."""
     from . import features as F
-    from .data import burg_step, codec_step, feature_step
+    from .data import codec_step, feature_step
+    from .ops import burg
     pcm = _hp_biquad(pcm)
     T = len(pcm) // FRAME_SIZE // 4 * 4
     pcm = torch.as_tensor(_pad_to_chunks(pcm, T), device=dev)
@@ -555,7 +556,7 @@ def _dump_test(args, pcm: np.ndarray, cbs, dev) -> int:
                 _, fq, vq_mem = encode(f[:, :4 * n], vq_mem, sps[:n])
                 f = torch.cat([fq, f[:, 4 * n:]], dim=1)
         if args.mode == "btest":
-            b36 = burg_step(x[0].reshape(-1, FRAME_SIZE))
+            b36 = burg.burg_cepstral_analysis(x[0].reshape(-1, FRAME_SIZE))
             f = torch.cat([b36[None], f], dim=-1)
         outs.append(f[0].cpu().numpy())
     allf = np.concatenate(outs)[:T].astype(np.float32)

@@ -15,11 +15,12 @@ loop (slow; for tests).
 The device steps that the commands, the bench and the tools call once per
 chunk are jit entry points (utils/graphs.py) kept here, as the JAX
 package keeps its jitted feature step (lpcnet_tpu/data.py:96-106):
-feature_step(quantize, mode) per key, codec_step(kind, codebooks) per
+feature_step(quantize, mode) per key and codec_step(kind, codebooks) per
 codec call and codebooks dict, one slot per kind (new codebooks evict the
-old ones' graphs, as lpcnet_tpu/data.py:148-156 does), and burg_step. On
-the card the first call of a shape runs eagerly, the second captures it,
-and later ones replay it; whole-chunk callers pad to one shape.
+old ones' graphs, as lpcnet_tpu/data.py:148-156 does). On the card the
+first call of a shape runs eagerly, the second captures it, and later
+ones replay it; whole-chunk callers pad to one shape. Burg needs no graph:
+on the card ops/burg.burg_cepstral_analysis is one kernel launch.
 """
 import ctypes
 import functools
@@ -74,9 +75,6 @@ def codec_step(kind: str, codebooks) -> graphs.jit:
             f"data.{kind}"))
     return slot[1]
 
-
-# ops/burg.burg_cepstral_analysis of a chunk of frames (B, 160) -> (B, 36)
-burg_step = graphs.jit(burg.burg_cepstral_analysis, "data.burg_step")
 
 
 def _ptr(a: np.ndarray):

@@ -11,19 +11,29 @@ goldens), since the result only feeds log band energies.
 
 LPCNet always calls this with a single subframe (nb_subfr=1,
 subfr_length=79, D=16, minInvGain=1e-3), freq.c:170.
+
+burg_cepstral_analysis runs on a CUDA tensor as one kernel
+(kernels/burg_cuda.py, csrc/burg_cepstrum.cu), which reads this module's
+tables (kernel_tables), and on a CPU tensor as the plain version here
+(burg_cepstral_analysis_plain), which the CPU tests hold against JAX.
 """
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from ..constants import LPC_ORDER, PREEMPHASIS, WINDOW_SIZE
+from ..kernels import burg_cuda
 from . import dsp
-from .tables import device_constant
+from .tables import BAND_EDGE_SCALE, BAND_INTERP, DCT_TABLE, device_constant
 
 _COND_FAC = 1e-5  # FIND_LPC_COND_FAC (burg.c:40)
 # the inverse filter's bandwidth expansion 0.995^(i+1), i < LPC_ORDER
 _BW = 0.995 ** np.arange(1, LPC_ORDER + 1, dtype=np.float32)
+# the kernel's DFT twiddles: cos and sin of 2 pi m / WINDOW_SIZE, computed
+# in float64
+_PHASE = 2.0 * np.pi * np.arange(WINDOW_SIZE) / WINDOW_SIZE
+_TWIDDLE = np.stack([np.cos(_PHASE), np.sin(_PHASE)]).astype(np.float32)
 
 
 def _pad_tail(u: torch.Tensor, width: int) -> torch.Tensor:
@@ -156,10 +166,29 @@ def burg_cepstrum(pcm: torch.Tensor) -> torch.Tensor:
     return torch.cat([ceps[..., :1] - 4.0, ceps[..., 1:]], dim=-1)
 
 
+def kernel_tables(device) -> Dict[str, torch.Tensor]:
+    """The Burg kernel's tables on `device` (burg_cuda.TABLE_SHAPES), kept
+    there by device_constant, so a CUDA graph captures no upload."""
+    return {"bw": device_constant(_BW, device),
+            "twiddle": device_constant(_TWIDDLE, device),
+            "band": device_constant(BAND_INTERP, device),
+            "edge": device_constant(BAND_EDGE_SCALE, device),
+            "dct": device_constant(DCT_TABLE, device)}
+
+
 def burg_cepstral_analysis(pcm: torch.Tensor) -> torch.Tensor:
     """Sum/difference Burg cepstra of the two half-frames
     (burg_cepstral_analysis, freq.c:188-199). pcm: (..., 160) ->
-    (..., 36) [.5*(c0+c1) | (c0-c1)]. The two half-frames go through the
-    recursion as one stacked batch."""
+    (..., 36) [.5*(c0+c1) | (c0-c1)]. A CUDA tensor goes through the
+    kernel (one launch), any other through the plain version."""
+    if pcm.device.type == "cuda":
+        return burg_cuda.burg_cepstral_analysis(
+            pcm.to(torch.float32).contiguous(), kernel_tables(pcm.device))
+    return burg_cepstral_analysis_plain(pcm)
+
+
+def burg_cepstral_analysis_plain(pcm: torch.Tensor) -> torch.Tensor:
+    """burg_cepstral_analysis in PyTorch operations on any device. The two
+    half-frames go through the recursion as one stacked batch."""
     c = burg_cepstrum(torch.stack([pcm[..., :80], pcm[..., 80:160]]))
     return torch.cat([0.5 * (c[0] + c[1]), c[0] - c[1]], dim=-1)

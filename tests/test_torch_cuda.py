@@ -1,4 +1,5 @@
-"""The CUDA sample kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels (the sample loop's, Burg's cepstral analysis) against
+their plain PyTorch versions, on the card.
 
 Marked `cuda`; each test skips where torch finds no CUDA device. This file
 imports neither jax nor lpcnet_tpu, so it also runs on a machine with the
@@ -837,6 +838,155 @@ def test_graphed_step_fails_on_a_per_call_upload(card, monkeypatch, module):
     assert graphs.captures == {step.name: 1}
 
 
+# Burg's cepstral analysis: the kernel (csrc/burg_cepstrum.cu) against
+# the plain PyTorch version on the same card. 1e-4 absolute: float32 sums
+# in another order (index order in the kernel, PyTorch's reductions,
+# cuFFT and cuBLAS in the plain version) carried through the 16 dependent
+# steps of the recursion and 1 / |A|^2 at the spectrum's dips. 2e-3 on
+# full-scale clipped tones, where the gain guard hits just past its
+# threshold and sqrt(1 - 1e-3 / inv_gain) magnifies any rounding: there
+# the plain version itself lies up to 9.4e-4 from its result on the CPU
+# and up to 7.1e-4 from a float64 copy of it.
+BURG_TOL, BURG_TOL_CLIPPED = 1e-4, 2e-3
+BURG_SHAPES = [(160,), (1, 160), (2, 3, 160), (1024, 160)]
+BURG_KINDS = ("golden", "speech", "zeros", "clipped", "sine")
+_HERE = os.path.dirname(__file__)
+
+
+def _burg_frames():
+    """{kind: (n, 160) float32}: the golden frames, frames of the
+    benchmark's speech, all-zero frames (a lost frame's pcm), full-scale
+    clipped tones and pure tones (every half-frame predictable past the
+    gain guard)."""
+    golden = np.fromfile(os.path.join(_HERE, "golden", "burg.bin"),
+                         np.float32).reshape(-1, 196)
+    speech = np.fromfile(os.path.join(_HERE, os.pardir, "lpcbench", "data",
+                                      "speech.s16"), np.int16)
+    t = np.arange(160)[None]
+    f = np.array([220.0, 440.0, 1000.0, 3100.0])[:, None]
+    tone = np.sin(2 * np.pi * f * t / 16000 + f / 100)
+    return {"golden": golden[:, :160],
+            "speech": speech.reshape(-1, 160)[::5].astype(np.float32),
+            "zeros": np.zeros((4, 160), np.float32),
+            "clipped": np.clip(4e4 * tone, -32767, 32767).astype(np.float32),
+            "sine": (8000 * tone).astype(np.float32)}
+
+
+def _burg_batch(shape):
+    """Frames of every kind in turn, as many as `shape` holds, and the kind
+    of each (flat)."""
+    frames = _burg_frames()
+    n = int(np.prod(shape[:-1]))
+    order = [(k, frames[k][i % len(frames[k])])
+             for i in range(n) for k in BURG_KINDS][:n]
+    return (np.stack([f for _, f in order]).reshape(shape),
+            np.array([k for k, _ in order]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BURG_SHAPES,
+                         ids=["x".join(map(str, s)) for s in BURG_SHAPES])
+def test_burg_kernel_matches_plain(card, shape):
+    """ops/burg.burg_cepstral_analysis on a CUDA tensor is one launch of
+    the kernel, with the plain version's result to BURG_TOL
+    (BURG_TOL_CLIPPED on clipped tones)."""
+    from lpcnet_tpu_torch.kernels import burg_cuda
+    from lpcnet_tpu_torch.ops import burg
+    frames, kinds = _burg_batch(shape)
+    x = torch.as_tensor(frames, device=card)
+    before = burg_cuda.launches
+    got = burg.burg_cepstral_analysis(x)
+    assert burg_cuda.launches == before + 1
+    want = burg.burg_cepstral_analysis_plain(x)
+    assert got.shape == shape[:-1] + (36,)
+    gap = (got - want).abs().reshape(-1, 36).max(-1).values.cpu().numpy()
+    tol = np.where(kinds == "clipped", BURG_TOL_CLIPPED, BURG_TOL)
+    assert (gap <= tol).all(), {k: float(gap[kinds == k].max())
+                                for k in set(kinds)}
+
+
+@pytest.mark.cuda
+def test_burg_kernel_golden(card):
+    """Against the reference C's burg_cepstral_analysis, with the
+    tolerances of tests/test_burg.py."""
+    from lpcnet_tpu_torch.ops import burg
+    d = np.fromfile(os.path.join(_HERE, "golden", "burg.bin"),
+                    np.float32).reshape(-1, 196)
+    got = burg.burg_cepstral_analysis(torch.as_tensor(d[:, :160],
+                                                      device=card))
+    np.testing.assert_allclose(got.cpu().numpy(), d[:, 160:], rtol=2e-3,
+                               atol=5e-3)
+
+
+@pytest.mark.cuda
+def test_burg_kernel_gain_guard_agrees_with_plain(card):
+    """The kernel's gain-guard decision per half-frame equals the plain
+    version's on every test frame: there the guard hit where its
+    coefficients differ from the same analysis without a guard. Every
+    pure tone hits and no zero frame does."""
+    from lpcnet_tpu_torch.kernels import burg_cuda
+    from lpcnet_tpu_torch.ops import burg
+    frames = _burg_frames()
+    x = torch.as_tensor(np.concatenate([frames[k] for k in BURG_KINDS]),
+                        device=card)
+    hit = torch.full((x.shape[0], 2), -1, dtype=torch.int32, device=card)
+    burg_cuda.burg_cepstral_analysis(x, burg.kernel_tables(card), hit=hit)
+    halves = torch.stack([x[:, :80], x[:, 80:]], dim=1)
+    pre = halves[..., 1:] - 0.85 * halves[..., :-1]
+    guarded, _ = burg.burg_analysis(pre, 1e-3)
+    free, _ = burg.burg_analysis(pre, 0.0)
+    plain = (guarded != free).any(-1)
+    assert torch.equal(hit.bool(), plain) and bool((hit >= 0).all())
+    kinds = np.concatenate([[k] * len(frames[k]) for k in BURG_KINDS])
+    hit = hit.cpu().numpy()
+    assert hit[kinds == "sine"].all() and not hit[kinds == "zeros"].any()
+
+
+@pytest.mark.cuda
+def test_captured_plc_step_replays_the_burg_kernel(card):
+    """PLCEngine.step graphed: the eager first call and the capture each
+    launch the Burg kernel once, a replay launches nothing from the host,
+    and the chain is bit-identical to the same calls eagerly."""
+    from lpcnet_tpu_torch.kernels import burg_cuda
+    from lpcnet_tpu_torch.utils import graphs
+    step, method, state, args = _graph_case(card, "PLCEngine", 1, 3)
+    before = burg_cuda.launches
+    with graphs.disabled():
+        eager = _chain(method, state, args)
+    assert burg_cuda.launches == before + 3
+    graphs.captures.clear()
+    graphs.replays.clear()
+    graphed = _chain(method, state, args)
+    assert graphs.captures == {step.name: 1}
+    assert graphs.replays == {step.name: 2}
+    assert burg_cuda.launches == before + 5
+    for e, g in zip(eager, graphed):
+        assert _tree_equal(e, g)
+
+
+@pytest.mark.cuda
+def test_synthesis_never_loads_the_burg_library(card):
+    """A process that synthesizes on the card (the synthesis cells' path)
+    neither builds nor loads the Burg kernel's library: it is loaded at the
+    first Burg call on a CUDA tensor, apart from the sample kernels'."""
+    import subprocess
+    import sys
+    code = ("import numpy as np, torch\n"
+            "from lpcnet_tpu_torch.vocoder import Synthesizer\n"
+            "voc = Synthesizer(device=torch.device('cuda'))\n"
+            "f = np.fromfile('tests/golden/ref_feats.f32', np.float32)\n"
+            "voc.synthesize(voc.reset(1), f.reshape(-1, 36)[None, :4])\n"
+            "torch.cuda.synchronize()\n"
+            "maps = open('/proc/self/maps').read()\n"
+            "print('sample', 'libsample_frame' in maps)\n"
+            "print('burg', 'libburg_cepstrum' in maps)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=os.path.join(_HERE, os.pardir),
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split("\n")[-3:] == ["sample True", "burg False", ""]
+
+
 def _train_run(card, name):
     """(the jit, the initial params, the optimizer, a function of the
     last step's params and state giving the next step's arguments, the
@@ -991,16 +1141,16 @@ def test_graphed_train_step_fails_on_a_per_call_upload(card, monkeypatch):
 
 
 # ---- the JAX package's other jit sites (tests/test_torch_jit_sites.py on
-# the CPU): the feature, codec and Burg steps (data.py), the k-means updates
+# the CPU): the feature and codec steps (data.py), the k-means updates
 # (codec/vq_train.py), the tools' steps; each a chain of JIT_SITE_CALLS
 # calls at two sizes (streams, frames or corpus rows: JIT_SITE_SIZES)
 JIT_SITE_CASES = ["feature_step-superframe", "feature_step-superframe_q",
                   "feature_step-single", "feature_step-single_q",
                   "encode_superframes", "encode_superframe",
-                  "decode_packets", "decode_packet", "burg_step", "lloyd",
+                  "decode_packets", "decode_packet", "lloyd",
                   "kmeans_multi", "fit_pade", "feats_of", "eval_plc"]
 JIT_SITE_SIZES = {"feature_step": (1, 128), "encode": (1, 128),
-                  "decode": (1, 128), "burg_step": (64, 1024),
+                  "decode": (1, 128),
                   "lloyd": (2000, 40000), "kmeans_multi": (2000, 40000),
                   "fit_pade": (1000, 2000), "feats_of": (1, 16),
                   "eval_plc": (1, 32)}
@@ -1074,10 +1224,6 @@ def _jit_site(card, case, which):
                 mem = outs[-1][-1]
             return outs, None
         return step, run
-    if kind == "burg_step":
-        frames = dev((rs.randn(n, size, 160) * 3000).astype(np.float32))
-        return data.burg_step, lambda: (
-            [data.burg_step(frames[i]) for i in range(n)], None)
     if kind in ("lloyd", "kmeans_multi"):
         multi = kind == "kmeans_multi"
         x = dev(rs.randn(*((size, 4, 18) if multi else (size, 17)))

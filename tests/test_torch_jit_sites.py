@@ -1,6 +1,6 @@
 """The JAX package's remaining jax.jit sites in the port, on the CPU: the
-feature, codec and Burg steps of the commands, the data pipeline, the bench
-and the tools (data.feature_step, data.codec_step, data.burg_step), the
+feature and codec steps of the commands, the data pipeline, the bench and
+the tools (data.feature_step, data.codec_step), the
 k-means updates (codec/vq_train.py), the tools' steps (fit_pade.step,
 train_codebooks.feats_of, eval_plc.forward), temperature synthesis (its
 conditioning jit and its sample step, a graphs.loop_step) and the
@@ -127,9 +127,11 @@ def test_codec_steps_are_the_codec_functions(kind):
 
 def test_cli_feature_commands_call_the_feature_step(monkeypatch, tmp_path):
     """The features and encode commands and dump-data's test modes reach
-    the feature step, the encode step and Burg through their jits, one
-    call per chunk, with tensors on the command's device."""
+    the feature step and the encode step through their jits, and btest
+    Burg (one kernel launch on the card, no graph), one call per chunk,
+    with tensors on the command's device."""
     from lpcnet_tpu_torch import cli
+    from lpcnet_tpu_torch.ops import burg
     pcm = _pcm(72)[0].astype(np.int16)
     src = str(tmp_path / "in.pcm")
     pcm.tofile(src)
@@ -144,12 +146,19 @@ def test_cli_feature_commands_call_the_feature_step(monkeypatch, tmp_path):
         (["encode", src, out("c.bin"), "--codebooks", cbs_path],
          {data.feature_step(True): 2}),
         (["dump-data", "btest", src, out("b.f32")],
-         {data.feature_step(False, "single"): 2, data.burg_step: 2}),
+         {data.feature_step(False, "single"): 2}),
         (["dump-data", "qtest", src, out("q.f32"), "--codebooks",
           cbs_path], {data.feature_step(True): 2}),
     ]
     for argv, want in runs:
         seen = {step: _spy(monkeypatch, step) for step in want}
+        burg_calls, real_burg = [], burg.burg_cepstral_analysis
+
+        def burg_spy(pcm, burg_calls=burg_calls, real_burg=real_burg):
+            burg_calls.append((pcm,))
+            return real_burg(pcm)
+
+        monkeypatch.setattr(burg, "burg_cepstral_analysis", burg_spy)
         enc = []
         real = data.codec_step
 
@@ -163,6 +172,8 @@ def test_cli_feature_commands_call_the_feature_step(monkeypatch, tmp_path):
         for step, n in want.items():
             assert len(seen[step]) == n, (argv, step.name)
             assert all(_on_cpu(a) for a in seen[step]), argv
+        assert len(burg_calls) == (2 if "btest" in argv else 0), argv
+        assert all(_on_cpu(a) for a in burg_calls), argv
         if "encode" in argv or "qtest" in argv:
             (step, calls), = enc
             assert step.name == "data.encode_superframes"
