@@ -13,6 +13,15 @@ the decoder rebuilds the feature history from the latest payload received.
     zd, sd = dc.encode(feats20)                # (B, T, 20), T % 4 == 0
     sym, qid = dc.quantize_payload(zd[:, :s])  # payload of packet s
     feats = dc.decode(sym, qid, sd[:, s - n])  # (B, 4n, 20), oldest first
+
+A live sender encodes as the audio comes, one dframe at a time, on state
+that each stream keeps on the device between calls (the C encoder's
+RDOVAEEncState, src/dred_rdovae_enc.c:38-95), and sends a payload for
+every dframe:
+
+    st = dc.init_state(B)                      # B fresh streams
+    out = dc.step(st, feats4)                  # (B, 4k, 20): k dframes
+    out["symbols"], out["oldest_state"]        # (B, k, n, 80), (B, k, 24)
 """
 import dataclasses
 
@@ -22,7 +31,7 @@ import torch
 from . import convert
 from .device import resolve_device
 from .models import rdovae as rv
-from .utils import graphs
+from .utils import graphs, profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,8 +62,13 @@ class DREDCodec:
         self.params = convert.to_device(params, self.device)
         self.cfg = cfg
         self.dred = dred_cfg
-        # the payload's quant ids, newest first, uploaded once
+        # the payload's quant ids, newest first, uploaded once, and their
+        # quantizers: under a fixed ramp, constants of the codec
         self.qid = torch.as_tensor(quant_id_ramp(dred_cfg), device=self.device)
+        with torch.no_grad():
+            qp = rv.quant_params(self.params, self.qid, cfg)
+            self._scale, self._dead_zone = qp["scale"], qp["dead_zone"]
+            self._taps = rv.conv_taps(self.params)
         # jit-compiled as the JAX package's are (lpcnet_tpu/dred.py:54-55):
         # on the card the first call of each argument signature captures a
         # CUDA graph and every call replays it (utils/graphs.py)
@@ -76,15 +90,115 @@ class DREDCodec:
         # dframe rate: every second pair step, the one ending the dframe
         return z[:, 1::2], rv.pvq_quantize(state[:, 1::2], self.cfg.pvq_k)
 
+    def _symbols(self, window: torch.Tensor) -> torch.Tensor:
+        """Symbols of latents (..., n, 80), newest first, under the age
+        ramp's quantizers."""
+        dze = rv.apply_dead_zone(window * self._scale, self._dead_zone)
+        return torch.round(dze).to(torch.int32)
+
     @torch.no_grad()
     def quantize_payload(self, zd):
         """Quantize the last num_dframes latents with the age ramp.
         zd: (B, S, 80) with S >= num_dframes. Returns (symbols (B, n, 80)
         int32, newest first; the quant ids used (n,) int32)."""
         tail = torch.flip(self._f32(zd)[:, -self.dred.num_dframes:], [1])
-        qp = rv.quant_params(self.params, self.qid, self.cfg)
-        dze = rv.apply_dead_zone(tail * qp["scale"], qp["dead_zone"])
-        return torch.round(dze).to(torch.int32), self.qid
+        return self._symbols(tail), self.qid
+
+    def init_state(self, batch: int) -> "EncoderState":
+        """The encoder state of `batch` fresh streams, on the device:
+        zeros, as encode starts."""
+        c, n = self.cfg, self.dred.num_dframes
+
+        def z(*shape):
+            return torch.zeros((batch,) + shape, device=self.device)
+        return EncoderState({"gru": z(3, c.cond_size),
+                             "carry": z(c.nb_latents),
+                             "latents": z(n, c.nb_latents),
+                             "states": z(n, c.state_dim)})
+
+    def step(self, state: "EncoderState", feats):
+        """Advance every stream of `state` by k dframes, in place. feats:
+        (B, 4k, 20). Returns a dict of each dframe's "latents" (B, k, 80)
+        and PVQ "states" (B, k, 24), what encode gives on the whole
+        history, and its payload: "symbols" (B, k, n, 80) int32, newest
+        first, what quantize_payload gives on the history up to that
+        dframe, and "oldest_state" (B, k, 24), the PVQ state of the
+        payload's oldest dframe (latents and states before a stream's
+        start are zeros).
+
+        On the card each k has two graphs.loop_steps on the state's own
+        tensors (first call eager, second captured, then replays), with
+        nothing copied in but feats: "DREDCodec.step.recurrent", the
+        GRUs' first recurrent products, which need no features, launched
+        first, so that the card works on them while the host copies feats
+        in and launches "DREDCodec.step", the rest."""
+        k = feats.shape[1] // 4
+        steps = state.steps.get(k)
+        if steps is None:
+            steps = state.steps[k] = self._loop_steps(state, feats.shape)
+        recur, rest = steps
+        recur()
+        rest.bufs["feats"].copy_(self._f32(feats))
+        rest()
+        B = feats.shape[0]
+        profiling.counters["dred.dframes"] += B * k
+        profiling.counters["dred.payloads"] += B * k
+        return {name: v.clone() for name, v in rest.bufs["out"].items()}
+
+    def _loop_steps(self, state: "EncoderState", feats_shape):
+        """The two loop_steps of `state` for feats of `feats_shape`, on
+        their input and output buffers (step)."""
+        B, k = feats_shape[0], feats_shape[1] // 4
+        c, n = self.cfg, self.dred.num_dframes
+
+        def z(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+        recur = z(3, B, 3 * c.cond_size)
+        rest = {"feats": z(B, 4 * k, c.nb_features), "state": state.tensors,
+                "recur": recur,
+                "out": {"latents": z(B, k, c.nb_latents),
+                        "states": z(B, k, c.state_dim),
+                        "symbols": z(B, k, n, c.nb_latents,
+                                     dtype=torch.int32),
+                        "oldest_state": z(B, k, c.state_dim)}}
+        return (graphs.loop_step(self._recur_impl,
+                                 {"state": state.tensors, "recur": recur},
+                                 "DREDCodec.step.recurrent"),
+                graphs.loop_step(self._step_impl, rest, "DREDCodec.step"))
+
+    @torch.no_grad()
+    def _recur_impl(self, bufs):
+        with profiling.span("dred_stack"):
+            rv.recurrent_products(self.params, bufs["state"]["gru"],
+                                  bufs["recur"])
+
+    @torch.no_grad()
+    def _step_impl(self, bufs):
+        cfg, n = self.cfg, self.dred.num_dframes
+        state, out = bufs["state"], bufs["out"]
+        with profiling.span("dred_stack"):
+            pre, gru = rv.encode_stack(self.params, bufs["feats"],
+                                       state["gru"], cfg, bufs["recur"])
+        with profiling.span("dred_heads", joined=True):
+            z, s, carry = rv.encode_heads(self.params, self._taps,
+                                          state["carry"], pre, cfg)
+            s = rv.pvq_quantize(s, cfg.pvq_k)
+        with profiling.span("dred_payload", joined=True):
+            k = z.shape[1]
+            # every latent and state of the last n + k - 1 dframes, newest
+            # first; dframe j of the k (oldest first) has the n from k-1-j
+            zs = torch.cat([torch.flip(z, [1]), state["latents"]], dim=1)
+            ss = torch.cat([torch.flip(s, [1]), state["states"]], dim=1)
+            window = torch.flip(zs.unfold(1, n, 1)[:, :k], [1])
+            out["latents"].copy_(z)
+            out["states"].copy_(s)
+            out["symbols"].copy_(self._symbols(window.transpose(-1, -2)))
+            out["oldest_state"].copy_(torch.flip(ss[:, n - 1:n - 1 + k],
+                                                 [1]))
+            state["gru"].copy_(gru)
+            state["carry"].copy_(carry)
+            state["latents"].copy_(zs[:, :n])
+            state["states"].copy_(ss[:, :n])
 
     def decode(self, sym, qid, state):
         """Features from a redundancy payload. sym: (B, n, 80) symbols,
@@ -100,6 +214,21 @@ class DREDCodec:
         qp = rv.quant_params(self.params, qid, self.cfg)
         return rv.decode(self.params, torch.flip(sym / qp["scale"], [1]),
                          state, self.cfg)
+
+
+class EncoderState:
+    """The encoder state of B streams on the device (the C encoder's
+    RDOVAEEncState, src/dred_rdovae_enc.c, batched), which
+    DREDCodec.step updates in place. tensors: "gru" the three GRUs'
+    states (B, 3, cond_size), "carry" the last dframe's share of the next
+    latent (B, 80; rv.encode_heads), and the newest num_dframes latents
+    (B, n, 80) and PVQ states (B, n, 24), newest first. steps: the two
+    graphs.loop_steps of each count of dframes a call, on their input and
+    output buffers (DREDCodec.step)."""
+
+    def __init__(self, tensors):
+        self.tensors = tensors
+        self.steps = {}
 
 
 @torch.no_grad()

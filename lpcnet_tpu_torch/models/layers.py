@@ -103,25 +103,30 @@ def gru_apply(p, h, x, act="tanh", approx=False):
                      approx)
 
 
-def gru_scan(zrh, h0, wr, br, act="tanh", approx=False):
+def gru_scan(zrh, h0, wr, br, act="tanh", approx=False, first=None):
     """Reset-after GRU over a sequence from its input-side preactivations
     zrh (B, T, 3N) and h0 (B, N) -> (B, T, N), the state after each step
-    (lpcnet_tpu/training/lpcnet_task.py::_gru_scan). The outputs are
-    stacked, never written in place, so autograd can run through it."""
+    (lpcnet_tpu/training/lpcnet_task.py::_gru_scan); first, where given,
+    is the first step's recurrent preactivation h0 @ wr + br, computed
+    earlier. The outputs are stacked, never written in place, so autograd
+    can run through it."""
     h, hs = h0, []
     for t in range(zrh.shape[1]):
-        h = gru_gates(h, zrh[:, t], h @ wr + br, act, approx)
+        rec = first if t == 0 and first is not None else h @ wr + br
+        h = gru_gates(h, zrh[:, t], rec, act, approx)
         hs.append(h)
     return torch.stack(hs, dim=1) if hs else zrh.new_zeros(
         (zrh.shape[0], 0, h0.shape[-1]))
 
 
-def gru_sequence(p, x, h0, act="tanh", approx=False):
+def gru_sequence(p, x, h0, act="tanh", approx=False, first=None):
     """Reset-after GRU over a sequence: x (B, T, nin), h0 (B, N) ->
     (B, T, N). The input product is taken once for the whole sequence,
     then gru_scan runs step by step (the scan of lpcnet_tpu/models/
-    rdovae.py::_gru_seq and models/plc.py::forward_sequence)."""
-    return gru_scan(x @ p["wi"] + p["bi"], h0, p["wr"], p["br"], act, approx)
+    rdovae.py::_gru_seq and models/plc.py::forward_sequence); first as
+    gru_scan takes it."""
+    return gru_scan(x @ p["wi"] + p["bi"], h0, p["wr"], p["br"], act, approx,
+                    first)
 
 
 def dualfc_logits(p, x, approx=False):

@@ -16,10 +16,14 @@ The products are float32 matmuls. On the card they refuse to run while
 torch.backends.cuda.matmul.allow_tf32 is set: TF32 keeps ~3 decimal
 digits and flips DRED symbols, as it flips the codec's VQ choices. The
 causal conv is four shifted products, not torch's conv1d, whose cuDNN
-path runs float32 in TF32 by default. The initializers, the training-time
-quantizer hard_quantize and the rate-distortion losses
-serve training/rdovae_task.py; their gradients follow JAX's at ties
-(ops/ties.py).
+path runs float32 in TF32 by default. encode and a streaming sender
+share encode_stack; the sender runs it a dframe at a time from kept GRU
+states (and their first recurrent products, recurrent_products), and
+encode_heads from the conv's carry (conv_taps regroups its taps so that
+one product gives a dframe's latent and its share of the next one's).
+The initializers, the training-time quantizer hard_quantize and the
+rate-distortion losses serve training/rdovae_task.py; their gradients
+follow JAX's at ties (ops/ties.py).
 """
 import dataclasses
 from typing import Dict
@@ -104,32 +108,68 @@ def rate_aware_quant_init(params, cfg: RDOVAEConfig = RDOVAEConfig(),
     return {**params, "quant_embed": {"e": e}}
 
 
-def _stack(p, x, h0s, ap):
+# the encoder's three GRUs and the dense layer after each
+_GRUS = (("gru2", "dense3"), ("gru4", "dense5"), ("gru6", "dense7"))
+
+
+def _stack(p, x, h0s, ap, first=None):
     """The 8-layer stack shared by encoder and decoder: dense, GRU, dense,
     GRU, dense, GRU, dense, dense, each layer's output kept; h0s are the
-    three GRUs' initial states. Returns the concat (B, T, concat_size)."""
+    three GRUs' initial states, first (where given) their first recurrent
+    preactivations (recurrent_products). Returns the concat (B, T,
+    concat_size)."""
     outs = [layers.dense_apply(p["dense1"], x, "tanh", ap)]
-    for gru, dense, h0 in (("gru2", "dense3", h0s[0]),
-                           ("gru4", "dense5", h0s[1]),
-                           ("gru6", "dense7", h0s[2])):
-        outs.append(layers.gru_sequence(p[gru], outs[-1], h0, approx=ap))
+    for i, (gru, dense) in enumerate(_GRUS):
+        outs.append(layers.gru_sequence(
+            p[gru], outs[-1], h0s[i], approx=ap,
+            first=None if first is None else first[i]))
         outs.append(layers.dense_apply(p[dense], outs[-1], "tanh", ap))
     outs.append(layers.dense_apply(p["dense8"], outs[-1], "tanh", ap))
     return torch.cat(outs, dim=-1)
+
+
+def encode_stack(params, feats: torch.Tensor, gru: torch.Tensor,
+                 cfg: RDOVAEConfig = RDOVAEConfig(), first=None):
+    """The encoder's stack over feats (B, T, 20), T even, from the GRU
+    states gru (B, 3, cond_size) and, where given, their first recurrent
+    preactivations first (3, B, 3 cond_size; recurrent_products). Returns
+    (the concat (B, T/2, concat_size), one row per feature pair; the GRU
+    states after the last pair (B, 3, cond_size), read from the concat's
+    last row)."""
+    refuse_tf32(feats, "the RDO-VAE encoder's products (TF32 flips DRED "
+                "symbols)")
+    B, T, F = feats.shape
+    pre = _stack(params["enc"], feats.reshape(B, T // 2, 2 * F),
+                 gru.unbind(1), cfg.approx, first)
+    c, c2 = cfg.cond_size, cfg.cond_size2
+    # the concat's columns: dense1 (c2), gru2 (c), dense3 (c2), gru4 (c),
+    # dense5 (c2), gru6 (c), dense7, dense8
+    last = pre[:, -1]
+    return pre, torch.stack([last[:, (i + 1) * c2 + i * c:
+                                  (i + 1) * (c2 + c)] for i in range(3)],
+                            dim=1)
+
+
+def recurrent_products(params, gru: torch.Tensor, out: torch.Tensor) -> None:
+    """The encoder's GRUs' first recurrent preactivations h @ wr + br from
+    their states gru (B, 3, cond_size), which need no features: written
+    into out (3, B, 3 cond_size)."""
+    refuse_tf32(gru, "the RDO-VAE encoder's products (TF32 flips DRED "
+                "symbols)")
+    p = params["enc"]
+    for i, (g, _) in enumerate(_GRUS):
+        torch.add(gru[:, i] @ p[g]["wr"], p[g]["br"], out=out[i])
 
 
 def encode(params, feats: torch.Tensor, cfg: RDOVAEConfig = RDOVAEConfig()):
     """feats: (B, T, 20) with T even -> (z (B, T/2, 80), state (B, T/2,
     24)), one latent per feature pair (rdovae.py:257-329); the dframe rate
     is every second one (DREDCodec)."""
-    refuse_tf32(feats, "the RDO-VAE encoder's products (TF32 flips DRED "
-                "symbols)")
     p = params["enc"]
     ap = cfg.approx
     B, T, F = feats.shape
-    x = feats.reshape(B, T // 2, 2 * F)
-    h0 = feats.new_zeros((B, cfg.cond_size))
-    pre = _stack(p, x, (h0, h0, h0), ap)
+    pre, _ = encode_stack(params, feats,
+                          feats.new_zeros((B, 3, cfg.cond_size)), cfg)
     # causal conv k=4 (Keras padding='causal'): output t takes the inputs
     # t-3..t; each tap's product shifted in time, the taps added in order
     w = p["bits_conv"]["w"]
@@ -143,6 +183,39 @@ def encode(params, feats: torch.Tensor, cfg: RDOVAEConfig = RDOVAEConfig()):
     g = layers.dense_apply(p["gdense1"], pre, "tanh", ap)
     state = layers.dense_apply(p["gdense2"], g, "tanh", ap)
     return z, state
+
+
+def conv_taps(params) -> torch.Tensor:
+    """The causal conv's four taps w0..w3 regrouped for a dframe's two
+    pairs: (2 * concat_size, 2 * nb_latents), the rows [w0 | w2] of the
+    first pair over the rows [w1 | w3] of the second, so that the two
+    pairs' concat rows side by side, times it, give [the dframe's share
+    of the next dframe's latent | its share of its own]."""
+    w = params["enc"]["bits_conv"]["w"]
+    return torch.cat([torch.cat([w[0], w[2]], dim=1),
+                      torch.cat([w[1], w[3]], dim=1)], dim=0).contiguous()
+
+
+def encode_heads(params, taps: torch.Tensor, carry: torch.Tensor,
+                 pre: torch.Tensor, cfg: RDOVAEConfig = RDOVAEConfig()):
+    """The latent and state heads of k dframes, streaming: pre (B, 2k,
+    concat_size) from encode_stack, taps from conv_taps, carry (B,
+    nb_latents) the previous dframe's share of the first latent (zero at
+    a stream's start, as encode's causal padding). The conv's output at a
+    dframe's second pair t takes pairs t-3..t (encode's causal conv,
+    evaluated at the pairs encode keeps); the state head reads the second
+    pair. Returns (latents (B, k, 80), states (B, k, 24) before PVQ, the
+    carry for the next call (B, nb_latents))."""
+    ap = cfg.approx
+    B, T, C = pre.shape
+    nl = cfg.nb_latents
+    y = pre.reshape(B, T // 2, 2 * C) @ taps
+    early, late = y[..., :nl], y[..., nl:]
+    before = torch.cat([carry[:, None], early[:, :-1]], dim=1)
+    z = before + late + params["enc"]["bits_conv"]["b"]
+    g = layers.dense_apply(params["enc"]["gdense1"], pre[:, 1::2], "tanh", ap)
+    state = layers.dense_apply(params["enc"]["gdense2"], g, "tanh", ap)
+    return z, state, early[:, -1]
 
 
 def decode(params, z: torch.Tensor, init_state: torch.Tensor,

@@ -390,7 +390,11 @@ class loop_step:
     the step was made with: the graph reads and writes their memory. A
     failed capture raises RuntimeError naming the step; nothing falls back
     to eager calls. `calls` counts the eager calls on the card before the
-    capture, `replays` the replays, `capture_s` the capture's host time."""
+    capture, `replays` the replays, `capture_s` the capture's host time.
+    fn's spans (profiling.span) belong to the entry point `name`; their
+    events in the graph are read as CompiledStep reads them (every
+    profiling.SPAN_READ_EVERY-th untraced replay and the last before a
+    traced one, at the start of the next call, never waiting)."""
 
     def __init__(self, fn: Callable, bufs, name: str):
         self.fn, self.bufs, self.name = fn, bufs, name
@@ -398,27 +402,42 @@ class loop_step:
         self.calls = self.replays = 0
         self.capture_s = 0.0
         self.device = _device(bufs, name)
+        self.spans: profiling.SpanEvents = []
+        self._unread = 0       # untraced replays since the last read
+
+    def _eager(self) -> None:
+        with profiling.entry_point(self.name):
+            self.fn(self.bufs)
 
     def __call__(self) -> None:
         dev = self.device
         if is_disabled() or dev is None or dev.type != "cuda":
-            self.fn(self.bufs)
+            self._eager()
             return
         if self.graph is None:
             if self.calls + 1 < CAPTURE_CALL:
-                self.fn(self.bufs)
+                self._eager()
                 self.calls += 1
                 return
             graph = torch.cuda.CUDAGraph()
             t0 = time.perf_counter()
             try:
-                with torch.cuda.graph(graph):
+                with torch.cuda.graph(graph), \
+                        profiling.entry_point(self.name,
+                                              self.spans) as recorded:
                     self.fn(self.bufs)
+                del recorded
             except Exception as e:
                 raise _capture_error(self.name, e) from e
             self.capture_s = time.perf_counter() - t0
             self.graph = graph
             captures[self.name] += 1
+        traced = profiling.recording()
+        if self._unread and (traced or self._unread
+                             >= profiling.SPAN_READ_EVERY):
+            self._unread = 0
+            profiling.read_spans(self.name, self.spans)
         self.graph.replay()
+        self._unread = 0 if traced else self._unread + bool(self.spans)
         self.replays += 1
         replays[self.name] += 1

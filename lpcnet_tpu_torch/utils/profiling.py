@@ -22,6 +22,9 @@ profiling.py, whose StageTimer it replaces with spans).
     at the start of the next call, if its events have completed, as they
     have after a synchronize; nothing waits on an event. Traced replays
     are not read: CUPTI stretches a traced replay's kernels.
+  * counters: events the entry points count on the host as they are
+    called, by name (a replay runs no Python, so nothing in a graph
+    counts).
   * trace(log_dir): a torch.profiler trace of the CPU and, where there is
     one, the card, written as a chrome trace (*.pt.trace.json.gz) under
     log_dir; nothing when log_dir is empty. Recording the host's operators
@@ -62,6 +65,10 @@ replay_host: Dict[str, collections.deque] = collections.defaultdict(
 # (entry point, span), and the replays read, by entry point
 span_ms: Dict[Tuple[str, str], float] = collections.defaultdict(float)
 span_calls: collections.Counter = collections.Counter()
+# what the entry points count on the host, by name: "dred.dframes" and
+# "dred.payloads", a stream's dframe encoded and its payload made
+# (DREDCodec.step)
+counters: collections.Counter = collections.Counter()
 
 # a span's entry point, the list that collects a capture's span events, the
 # last span's end event, and every event recorded in the capture

@@ -12,6 +12,7 @@ the card's cluster count (sample_cuda._plan_forced): the card's own count
 gives plan L up to its boundary (8 streams per cluster), 0 gives plan T.
 """
 import contextlib
+import dataclasses
 import os
 
 import numpy as np
@@ -432,6 +433,68 @@ def test_tf32_is_refused_on_the_card(card, monkeypatch):
     with pytest.raises(RuntimeError, match="allow_tf32"):
         vq.vq_nearest(torch.zeros((4, 18), device=card),
                       torch.zeros((1, 18), device=card))
+
+
+@pytest.mark.cuda
+def test_dred_stream_step_at_published_widths_matches_plain(card,
+                                                            monkeypatch):
+    """DREDCodec.step at RDOVAEConfig() (GRUs of 1024) on weights the
+    plain reference draws (every bias nonzero, a scale and dead zone of
+    its own for every latent and level), 1024 streams x 40 dframes, one a call (the first call of
+    each of its two graphs eager, the second captured, the rest
+    replayed): bit-identical to the same
+    calls run eagerly, its spans read, and against the plain reference's
+    whole-history encode of 2 of the streams: latents within 1e-4 of it
+    over the larger of 1 and its largest (float32 sums in other orders,
+    through three GRUs: ~1e-6 measured, TF32 ~5e-4), PVQ states and
+    payload symbols with the DRED gates above (a rounding tie may move a
+    pulse or a symbol by one). With TF32 allowed a new state's first
+    step raises."""
+    from lpcnet_tpu_torch.dred import DREDCodec
+    from lpcnet_tpu_torch.models import rdovae
+    from lpcnet_tpu_torch.plain import rdovae_encode as plain
+    from lpcnet_tpu_torch.utils import graphs, profiling
+    cfg = rdovae.RDOVAEConfig()
+    params = plain.draw_params(19, dataclasses.asdict(cfg))
+    dc = DREDCodec(params, cfg, device=card)
+    B, N, rows = 1024, 40, [3, 700]
+    idx = (7 * np.arange(B)[:, None] + np.arange(4 * N)) % len(FEATS)
+    feats = torch.as_tensor(FEATS[idx, :20], device=card)
+
+    def run():
+        st = dc.init_state(B)
+        outs = [dc.step(st, feats[:, 4 * d:4 * d + 4]) for d in range(N)]
+        return st, {k: torch.cat([o[k] for o in outs], dim=1)
+                    for k in outs[0]}
+    with graphs.disabled():
+        _, eager = run()
+    graphs.captures.clear()
+    graphs.replays.clear()
+    profiling.span_calls.clear()
+    monkeypatch.setattr(profiling, "SPAN_READ_EVERY", 1)
+    st, graphed = run()
+    torch.cuda.synchronize()
+    names = ("DREDCodec.step", "DREDCodec.step.recurrent")
+    assert graphs.captures == {name: 1 for name in names}
+    assert graphs.replays == {name: N - 1 for name in names}
+    for k in eager:
+        assert torch.equal(eager[k], graphed[k]), k
+    dc.step(st, feats[:, :4])        # reads the spans of the last replay
+    assert all(profiling.span_calls[name] >= 1 for name in names)
+    assert profiling.span_ms_per_call("dred_stack") > 0
+    got = {k: v[rows] for k, v in graphed.items()}
+    z, s = plain.encode(dc.params, feats[rows])
+    sym, oldest = plain.payloads(dc.params, z, s, range(N))
+    assert float((got["latents"] - z).abs().max()) \
+        <= 1e-4 * max(1.0, float(z.abs().max()))
+    for mine, ref in ((got["states"], s), (got["oldest_state"], oldest)):
+        same = ((mine - ref).abs().amax(-1) <= 1e-4).float().mean()
+        assert float(same) >= DRED_GATE_STATES
+    assert int((got["symbols"] - sym).abs().max()) <= 1
+    assert float((got["symbols"] == sym).float().mean()) >= DRED_GATE_SYMBOLS
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    with pytest.raises(RuntimeError, match="allow_tf32"):
+        dc.step(dc.init_state(2), feats[:2, :4])
 
 
 def _training_case(name):
