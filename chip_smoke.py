@@ -82,6 +82,14 @@ Phases, each fatal on failure:
                device time of each per call, both replayed from CUDA graphs
                (BURG_REPS kernel launches in one graph, one plain call of
                ~1700 kernels in another), as the PLC step's graph runs them.
+  3c. lpc    - LPC from the cepstrum (ops/dsp.lpc_from_cepstrum) on 1 x 1
+               and 1024 x 50 rows of the golden features: the card's path
+               (PyTorch operations up to the inverse FFT, then one launch of
+               csrc/lpc_levinson.cu) against the plain PyTorch version on
+               the card, bit for bit; then the device time per call of the
+               kernel alone (LPC_REPS launches in one graph), of the card's
+               path and of the plain version (~427 kernels), each replayed
+               from a CUDA graph.
   4. noncausal - NonCausalPLCEngine(...).run, B=1024 x 10 frames (plan
                T) and B=1 x 3 (plan L): 4 synth_samples and 3
                teacher_advance launches per step, each teacher_advance call
@@ -293,6 +301,13 @@ Phases, each fatal on failure:
                one by one and the strict step's split (its 10
                frame_net_step calls, its 8 launches, the rest; host
                clock).
+In phases 2 to 4d every run launches the LPC kernel as often as its
+entry point calls lpc_from_cepstrum (once a synthesize, synthesize_teacher
+or codec synthesis call and once a streaming frame, twice a codec chunk
+encoded, twice a PLCEngine step, 8 times a NonCausalPLCEngine step, 11
+times a StrictCausalPLCEngine step; LpcTap keeps each call's cepstra),
+and every call's lpc and err are the plain version's on the run's own
+cepstra, bit for bit ([lpc] lines).
 Every phase but 4j's bench and 4l calls the entry points eagerly, inside
 graphs.disabled() (the counterpart of jax.disable_jit()): those phases
 count launches per call, record their arguments or time eager launches,
@@ -435,7 +450,7 @@ GATE_FRAMES = 1     # frames of each synthesis run held against the plain one
 TIME_FRAMES = 10    # frames per timed kernel call
 NA, NB, NL, FS = 384, 16, 256, 160
 SOURCES = ("sample_frame", "sample_frame_opt", "synth_samples",
-           "teacher_advance", "burg_cepstrum")
+           "teacher_advance", "burg_cepstrum", "lpc_levinson")
 # phase 3b: frames a call, kernel launches in the timed graph, the kernel's
 # tolerance against the plain version (tests/test_torch_cuda.py's BURG_TOL)
 BURG_BATCHES, BURG_REPS, BURG_TOL = (1, 1024), 100, 1e-4
@@ -634,6 +649,42 @@ class Recorder:
         return self._teacher(tables, state, cond, cfg, target)
 
 
+class LpcTap:
+    """Stands in for ops/dsp.lpc_from_cepstrum while the phases that count
+    launches run: passes every call through and keeps each call's cepstra
+    and results outside a CUDA graph's capture (a capture's tensors are the
+    graph's, which a replay overwrites), so that each run's LPC can be held
+    bit for bit against the plain version on the run's own cepstra
+    (differ)."""
+
+    def __init__(self, dsp):
+        self.mod = dsp
+        self.calls = []
+        self._call = dsp.lpc_from_cepstrum
+
+    def __enter__(self):
+        self.mod.lpc_from_cepstrum = self.lpc_from_cepstrum
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.lpc_from_cepstrum = self._call
+
+    def lpc_from_cepstrum(self, cepstrum):
+        lpc, err = self._call(cepstrum)
+        if cepstrum.device.type == "cuda" and not _capturing():
+            self.calls.append((cepstrum[..., :18].clone(), lpc.clone(),
+                               err.clone()))
+        return lpc, err
+
+    def differ(self) -> tuple:
+        """(rows kept, rows whose lpc or err differ in any bit from the
+        plain version's on the same call's cepstra). Each call is held on
+        its own shape: cuBLAS and cuFFT may round a batch of another size
+        differently, in the plain version as in the card's path."""
+        rows = sum(c[..., 0].numel() for c, _, _ in self.calls)
+        return rows, sum(lpc_differ(*call) for call in self.calls)
+
+
 def _capturing() -> bool:
     import torch
     return torch.cuda.is_current_stream_capturing()
@@ -648,11 +699,11 @@ def main() -> int:
         return fail(f"no lpcnet_tpu_torch package beside {__file__}")
     sys.path.insert(0, REPO)
     from lpcnet_tpu_torch import convert, features, plc, verify
-    from lpcnet_tpu_torch.kernels import (_build, burg_cuda, sample_cuda,
-                                          sample_scan)
+    from lpcnet_tpu_torch.kernels import (_build, burg_cuda, lpc_cuda,
+                                          sample_cuda, sample_scan)
     from lpcnet_tpu_torch.models import lpcnet as lpcnet_model
     from lpcnet_tpu_torch.models import plc as plc_model
-    from lpcnet_tpu_torch.ops import burg
+    from lpcnet_tpu_torch.ops import burg, dsp
     from lpcnet_tpu_torch.utils import graphs
     from lpcnet_tpu_torch.vocoder import Synthesizer
 
@@ -668,6 +719,8 @@ def main() -> int:
             for k in counts:
                 counts[k] = 0
         burg_cuda.launches = 0
+        lpc_cuda.launches = 0
+        lpc_tap.calls.clear()
         graphs.captures.clear()
         graphs.replays.clear()
 
@@ -685,6 +738,26 @@ def main() -> int:
             raise RuntimeError(f"{tag}: expected {n} plan-{plan} launches, "
                                f"got {got}")
         return last
+
+    lpc_tap = LpcTap(dsp)
+    lpc_rows = {}
+
+    def expect_lpc(tag, n):
+        """The run called lpc_from_cepstrum n times on the card and
+        launched the LPC kernel once a call, and every call's lpc and err
+        are the plain version's on its own cepstra, bit for bit."""
+        got, kept = lpc_cuda.launches, len(lpc_tap.calls)
+        if got != n or kept != n:
+            raise RuntimeError(f"{tag}: expected {n} LPC kernel launches, "
+                               f"got {got} ({kept} calls)")
+        rows, differ = lpc_tap.differ()
+        lpc_tap.calls.clear()
+        lpc_rows[tag] = rows
+        print(f"[lpc] {tag}: {got} launches over {rows} rows, {differ} of "
+              f"them differ from the plain version")
+        if differ:
+            raise RuntimeError(f"{tag}: {differ} rows of the LPC kernel "
+                               f"differ from the plain version")
 
     t_start = time.perf_counter()
 
@@ -709,6 +782,7 @@ def main() -> int:
     # Phase 4l holds the graphs against eager chains.
     eager = contextlib.ExitStack()
     eager.enter_context(graphs.disabled())
+    eager.enter_context(lpc_tap)
 
     # ---- 2. the synthesis path, each run held against the plain version
     phase("2 synthesis")
@@ -744,6 +818,7 @@ def main() -> int:
         if counts[variant] != frames or sum(counts.values()) != frames:
             return fail(f"{tag}: expected {frames} {variant} launches, got "
                         f"{counts}")
+        expect_lpc(tag, 1)
         plans[(variant, B)] = expect_plan(tag, B, frames)
         if p.shape != (B, frames * FS) or not np.isfinite(p).all() \
                 or np.abs(p).max() > 32767:
@@ -855,6 +930,7 @@ def main() -> int:
               f"B={big} x 1 frame: launches {counts}")
         if counts[counter] != 1 or sum(counts.values()) != 1:
             return fail(f"{tag}: expected 1 {counter} launch, got {counts}")
+        expect_lpc(tag, 1)
         expect_plan(tag, big, 1)
         bf16_runs[variant] = counts[counter]
         c = {k: v.contiguous() for k, v in vb.conditions(feats1).items()
@@ -928,6 +1004,9 @@ def main() -> int:
         torch.cuda.synchronize()
         t_enc = time.perf_counter() - t0
         enc_counts = sum(sample_cuda.launches.values())
+        # each chunk: the feature pass and the quantized features' LPC
+        expect_lpc(f"codec encode B={B}",
+                   2 * -(-n_sf // (CHUNK_FRAMES // 4)))
         rows = [r for r in CODEC_CPU_ROWS if r < B]
         ref = cli.encode_chunks(cbs_cpu, torch.as_tensor(padded[rows]), n_sf)
         got = packets[rows].cpu()
@@ -988,6 +1067,7 @@ def main() -> int:
             if counts[counter] != T or sum(counts.values()) != T:
                 return fail(f"{tag}: expected {T} {counter} launches, got "
                             f"{counts}")
+            expect_lpc(tag, -(-T // CHUNK_FRAMES))
             expect_plan(tag, B, T)
             if o.shape != (B, T * FS) or not np.isfinite(o).all() \
                     or not 0 < np.abs(o).max() <= 32767:
@@ -1025,7 +1105,7 @@ def main() -> int:
     # ---- 3. the PLC path: PLCEngine.run, one K3 launch per step
     phase("3 plc")
     plc_params = convert.load_plc(device=dev)
-    calls, plc_runs, engines, burg_runs = {}, {}, {}, {}
+    calls, plc_runs, engines, burg_runs, lpc_runs = {}, {}, {}, {}, {}
     for variant, B, frames in PLC_PATHS:
         eng = plc.PLCEngine(params, plc_params, device=dev, variant=variant)
         pcm_in, lost = tiled_speech(B, frames), loss_flags(B, frames)
@@ -1058,6 +1138,8 @@ def main() -> int:
             return fail(f"{tag}: expected {frames} Burg kernel launches (one"
                         f" a step), got {burg_cuda.launches}")
         burg_runs[(variant, B)] = burg_cuda.launches
+        expect_lpc(tag, 2 * frames)        # the feature pass, the frame net
+        lpc_runs[(variant, B)] = 2 * frames
         plans[("tf_" + variant, B)] = expect_plan(tag, B, frames)
         if o.shape != (B, frames * FS) or not np.isfinite(o).all() \
                 or np.abs(o).max() > 32767:
@@ -1074,6 +1156,8 @@ def main() -> int:
 
     phase("3b burg")
     burg_ms = burg_phase(dev, card)
+    phase("3c lpc")
+    lpc_ms = lpc_phase(dev, card)
 
     # ---- 4. the non-causal path: 4 K3 and 3 K4 launches per step
     phase("4 noncausal")
@@ -1110,6 +1194,7 @@ def main() -> int:
         if burg_cuda.launches != frames:
             return fail(f"{tag}: expected {frames} Burg kernel launches (one"
                         f" a step), got {burg_cuda.launches}")
+        expect_lpc(tag, 8 * frames)
         plans[("teacher", B)] = expect_plan(tag, B, 7 * frames)
         if o.shape != (B, frames * FS) or not np.isfinite(o).all() \
                 or np.abs(o).max() > 32767 or not delayed_ok:
@@ -1153,6 +1238,7 @@ def main() -> int:
     if counts["tf_flat"] != frames or sum(counts.values()) != frames:
         return fail(f"streaming: expected {frames} tf_flat launches and "
                     f"nothing else, got {counts}")
+    expect_lpc("streaming", frames)
     expect_plan("streaming", B, frames)
     if not (silent and untouched and o.shape == (B, (frames - look) * FS)
             and np.isfinite(o).all() and 0 < np.abs(o).max() <= 32767):
@@ -1181,6 +1267,7 @@ def main() -> int:
     if counts["tf_flat"] != frames or sum(counts.values()) != frames:
         return fail(f"teacher: expected {frames} tf_flat launches and "
                     f"nothing else, got {counts}")
+    expect_lpc("teacher", 1)
     expect_plan("teacher", B, frames)
     if not (forced_ok and np.isfinite(o).all()
             and np.abs(o).max() <= 32767):
@@ -1227,6 +1314,7 @@ def main() -> int:
         if burg_cuda.launches != frames:
             return fail(f"{tag}: expected {frames} Burg kernel launches (one"
                         f" a step), got {burg_cuda.launches}")
+        expect_lpc(tag, 11 * frames)
         expect_plan(tag, B, 8 * frames)
         if o.shape != (B, frames * FS) or not np.isfinite(o).all() \
                 or np.abs(o).max() > 32767:
@@ -1250,7 +1338,7 @@ def main() -> int:
     phase("4d dred-plc")
     with Recorder(sample_cuda) as rec:
         dred_plc = dred_plc_phase(dev, card, dred_out, params, plc_params,
-                                  zero_counts, expect_plan)
+                                  zero_counts, expect_plan, expect_lpc)
     calls.update(rec.calls)
 
     # ---- 4e. the DOT_PROD emulation; 4f. the inference tools
@@ -1690,6 +1778,26 @@ def main() -> int:
         "plain_ms_b1": burg_ms[1]["plain_ms"],
         "bound_ms_b1": burg_ms[1]["bound_ms"],
         "roofline_ms_b1": burg_ms[1]["roofline_ms"]})
+    big_l = int(np.prod(LPC_SHAPES[-1]))
+    kernels.append({
+        "name": "lpc_levinson", "route": "cuda",
+        "source": "lpcnet_tpu_torch/csrc/lpc_levinson.cu",
+        "replaces": None, "launches": lpc_runs[("flat", big)],
+        "launches_b1": lpc_runs[("flat", 1)],
+        "launches_base": lpc_runs[("base", big)],
+        "rows_held": sum(lpc_rows.values()), "max_abs_err": 0.0,
+        "tolerance": "bit-identical to the plain version on the card",
+        "ms": lpc_ms[big_l]["ms"], "path_ms": lpc_ms[big_l]["path_ms"],
+        "plain_ms": lpc_ms[big_l]["plain_ms"],
+        "bound_ms": lpc_ms[big_l]["bound_ms"],
+        "bound_by": lpc_ms[big_l]["bound_by"],
+        "roofline_ms": lpc_ms[big_l]["roofline_ms"],
+        "roofline_by": lpc_ms[big_l]["roofline_by"], "library_ms": None,
+        "batch": big_l, "ms_b1": lpc_ms[1]["ms"],
+        "path_ms_b1": lpc_ms[1]["path_ms"],
+        "plain_ms_b1": lpc_ms[1]["plain_ms"],
+        "bound_ms_b1": lpc_ms[1]["bound_ms"],
+        "roofline_ms_b1": lpc_ms[1]["roofline_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -1776,6 +1884,90 @@ def burg_phase(dev, card) -> dict:
         if not d <= BURG_TOL:
             raise RuntimeError(f"burg B={B}: the kernel is {d} from the "
                                f"plain version, beyond {BURG_TOL}")
+    return out
+
+
+# float32 operations of the LPC kernel per row, what its part of the
+# function needs (a multiply-add is two): the 17 lags' scale, the floor's
+# three and the lag window's 16; the 16 Levinson steps, at step i a sum of
+# i products plus ac[i+1], the division and its sign, i updates, the
+# error's three operations and the exit test
+LPC_ROW_FLOPS = 17 + 3 + 16 + sum(2 * i + 1 + 2 + 2 * i + 3 + 1
+                                  for i in range(16))
+# bytes of a row in (its 17 lags) and out (16 lpc and the error), and of the
+# lag window, read once a launch
+LPC_BYTES, LPC_TABLE_BYTES = 4 * (17 + 17), 4 * 16
+# The bound that binds: the recursion's own dependent chain at the H100's
+# 1.98 GHz, ~1,400 cycles (FP32 operations 4 cycles, an IEEE division
+# ~40): 16 steps, each a tree of i products, the division, the update and
+# the error. Whatever the design, a row cannot finish sooner.
+LPC_LATENCY_MS = 1400 / 1.98e9 * 1e3
+# phase 3c: leading shapes of a call (one stream's frame; synth-b1024's
+# conditioning) and kernel launches in the timed graph
+LPC_SHAPES, LPC_REPS = ((1, 1), (1024, 50)), 100
+
+
+def lpc_differ(cep, lpc, err) -> int:
+    """Rows whose lpc or err differ, in any bit, from
+    dsp.lpc_from_cepstrum_plain on the same cepstra on the card."""
+    from lpcnet_tpu_torch.ops import dsp
+    want_lpc, want_err = dsp.lpc_from_cepstrum_plain(cep)
+    return int(((lpc != want_lpc).any(-1) | (err != want_err)).sum())
+
+
+def lpc_phase(dev, card) -> dict:
+    """Phase 3c: ops/dsp.lpc_from_cepstrum on the card at each of
+    LPC_SHAPES rows of the golden features, bit for bit against the plain
+    version; then the device ms per call, each replayed from a CUDA graph:
+    the kernel alone (LPC_REPS launches in one graph), the card's path
+    (the PyTorch operations up to the inverse FFT and the kernel) and the
+    plain version (~427 kernels). Returns {rows: {...}}; raises where the
+    kernel does not launch once a call or a row differs."""
+    import torch
+    from lpcnet_tpu_torch.kernels import lpc_cuda
+    from lpcnet_tpu_torch.ops import dsp
+    out = {}
+    for shape in LPC_SHAPES:
+        rows = int(np.prod(shape))
+        x = torch.as_tensor(tiled_features(*shape), device=dev)
+        n0 = lpc_cuda.launches
+        lpc, err = dsp.lpc_from_cepstrum(x)
+        if lpc_cuda.launches != n0 + 1:
+            raise RuntimeError(f"lpc {shape}: {lpc_cuda.launches - n0} "
+                               f"kernel launches, expected 1")
+        differ = lpc_differ(x, lpc, err)
+        spec = dsp.interp_band_gain(dsp._band_energies(x))
+        y = torch.fft.irfft(spec.to(torch.complex64), n=320, dim=-1)
+        lag = torch.as_tensor(dsp._LAG, device=dev)
+        captured = {}
+        for name, fn, reps in (
+                ("kernel", lambda: lpc_cuda.lpc_from_lags(y, lag), LPC_REPS),
+                ("path", lambda: dsp.lpc_from_cepstrum(x), 1),
+                ("plain", lambda: dsp.lpc_from_cepstrum_plain(x), 1)):
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                for _ in range(reps):
+                    fn()
+            captured[name] = (g, reps)
+        ms = {k: cuda_ms(g.replay, 20) / reps
+              for k, (g, reps) in captured.items()}
+        roof, roof_by = _bound(rows * LPC_ROW_FLOPS,
+                               rows * LPC_BYTES + LPC_TABLE_BYTES)
+        bound, bound_by = max((roof, roof_by),
+                              (LPC_LATENCY_MS, "dependent latency"))
+        out[rows] = {"rows_differ": differ, "ms": ms["kernel"],
+                     "path_ms": ms["path"], "plain_ms": ms["plain"],
+                     "bound_ms": bound, "bound_by": bound_by,
+                     "roofline_ms": roof, "roofline_by": roof_by}
+        print(f"[lpc] {shape}: rows that differ from the plain version "
+              f"{differ} of {rows}; per call, replayed from a graph: kernel "
+              f"{ms['kernel'] * 1e3:.2f} us, the card's path "
+              f"{ms['path'] * 1e3:.2f} us, plain {ms['plain']:.4f} ms; "
+              f"kernel bound {bound * 1e3:.4f} us ({bound_by}; the roofline "
+              f"{roof * 1e3:.4f} us, {roof_by}) [{card}]")
+        if differ:
+            raise RuntimeError(f"lpc {shape}: {differ} rows differ from "
+                               f"the plain version")
     return out
 
 
@@ -1883,13 +2075,13 @@ def dred_fec_features(payloads, n: int, T: int):
 
 
 def dred_plc_phase(dev, card, dred_out, params, plc_params, zero_counts,
-                   expect_plan) -> dict:
+                   expect_plan, expect_lpc) -> dict:
     """Phase 4d: PLCEngine.step over the speech of phase 2d with
     loss_flags, at each batch of dred_out: before each step, every lost
     stream queues (fec_add, the reference's lpcnet_plc_fec_add) the
     features of that frame from the newest DRED payload that covers it.
     Gates: one K3 launch per step and nothing else, under the batch's plan,
-    and one Burg kernel launch per step;
+    one Burg kernel launch and two LPC kernel launches per step;
     some lost frames concealed from DRED features; good rows equal their
     input. Returns ms per step, launches and FEC frames per batch. Raises
     RuntimeError on a failed gate."""
@@ -1943,6 +2135,7 @@ def dred_plc_phase(dev, card, dred_out, params, plc_params, zero_counts,
         if burg_cuda.launches != T:
             raise RuntimeError(f"{tag}: expected {T} Burg kernel launches "
                                f"(one a step), got {burg_cuda.launches}")
+        expect_lpc(tag, 2 * T)
         expect_plan(tag, B, T)
         if not (n_fec > 0 and good_ok and np.isfinite(o).all()
                 and np.abs(o).max() <= 32767):

@@ -4,6 +4,13 @@ reference src/freq.c). The FFTs are torch.fft's; band folding and the DCT
 are small matrix products.
 
 All functions are batched over arbitrary leading dims.
+
+lpc_from_cepstrum runs on a CUDA tensor as PyTorch operations up to the
+inverse FFT and one kernel after it (kernels/lpc_cuda.py,
+csrc/lpc_levinson.cu: the lags, the noise floor, the lag window and
+Levinson-Durbin), which gives the plain version's bits; on a CPU tensor as
+the plain version here (lpc_from_cepstrum_plain), which the CPU tests hold
+against JAX.
 """
 import functools
 
@@ -11,6 +18,7 @@ import numpy as np
 import torch
 
 from ..constants import FREQ_SIZE, LPC_ORDER, NB_BANDS, WINDOW_SIZE
+from ..kernels import lpc_cuda
 from .tables import (BAND_EDGE_SCALE, BAND_INTERP, COMPENSATION, DCT_TABLE,
                      HALF_WINDOW, device_constant)
 
@@ -145,13 +153,36 @@ def lpc_from_bands(Ex: torch.Tensor):
     return lpc, err
 
 
-def lpc_from_cepstrum(cepstrum: torch.Tensor):
-    """18 cepstral coeffs -> 16 LPC (freq.c:310-320). cepstrum: (..., >=18)."""
+def _band_energies(cepstrum: torch.Tensor) -> torch.Tensor:
+    """The band energies of 18 cepstral coeffs (freq.c:314-318)."""
     tmp = cepstrum[..., :NB_BANDS].to(torch.float32).clone()
     tmp[..., 0] += 4.0
     Ex = idct(tmp)
-    Ex = torch.pow(10.0, Ex) * device_constant(COMPENSATION, Ex.device)
-    return lpc_from_bands(Ex)
+    return torch.pow(10.0, Ex) * device_constant(COMPENSATION, Ex.device)
+
+
+def lpc_from_cepstrum(cepstrum: torch.Tensor):
+    """18 cepstral coeffs -> 16 LPC (freq.c:310-320). cepstrum: (..., >=18).
+    Returns (lpc (..., 16), err (...)). On a CUDA tensor the band spectrum
+    and its inverse FFT are the plain version's PyTorch operations and the
+    rest one kernel launch (lpc_cuda.lpc_from_lags), the plain version's
+    bits; any other tensor takes the plain version."""
+    if cepstrum.device.type == "cuda":
+        return _lpc_from_cepstrum_card(cepstrum)
+    return lpc_from_cepstrum_plain(cepstrum)
+
+
+def _lpc_from_cepstrum_card(cepstrum: torch.Tensor):
+    """The card's path: the plain version's operations up to the inverse
+    FFT, then one launch of lpc_cuda.lpc_from_lags."""
+    X = interp_band_gain(_band_energies(cepstrum))
+    y = torch.fft.irfft(X.to(torch.complex64), n=WINDOW_SIZE, dim=-1)
+    return lpc_cuda.lpc_from_lags(y, device_constant(_LAG, y.device))
+
+
+def lpc_from_cepstrum_plain(cepstrum: torch.Tensor):
+    """lpc_from_cepstrum in PyTorch operations on any device."""
+    return lpc_from_bands(_band_energies(cepstrum))
 
 
 def lpc_weighting(lpc: torch.Tensor, gamma: float) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""The CUDA kernels (the sample loop's, Burg's cepstral analysis) against
-their plain PyTorch versions, on the card.
+"""The CUDA kernels (the sample loop's, Burg's cepstral analysis, LPC from
+the cepstrum) against their plain PyTorch versions, on the card.
 
 Marked `cuda`; each test skips where torch finds no CUDA device. This file
 imports neither jax nor lpcnet_tpu, so it also runs on a machine with the
@@ -1048,6 +1048,181 @@ def test_synthesis_never_loads_the_burg_library(card):
                          timeout=600)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.split("\n")[-3:] == ["sample True", "burg False", ""]
+
+
+# LPC from the cepstrum: on the card the band spectrum and its inverse FFT
+# are the plain version's PyTorch operations and the rest one kernel
+# (csrc/lpc_levinson.cu), held bit for bit against the plain version on the
+# same card: the sample loop quantizes the LPC prediction, and the
+# benchmark's reference recomputes the conditioning in plain PyTorch.
+LPC_SHAPES = [(1,), (2,), (1, 1), (3, 5, 7), (1024, 50)]
+LPC_KINDS = ("golden", "speech", "zeros", "peaky")
+
+
+def _lpc_rows():
+    """{kind: (n, 18) float32}: the golden features, features of the
+    benchmark's speech (the feature pass on the CPU), all-zero cepstra and
+    peaky spectra (one band 10^5-10^8 above the rest, most of which
+    Levinson predicts past 30 dB and stops early)."""
+    from lpcnet_tpu_torch import features
+    from lpcnet_tpu_torch.ops import dsp
+    data = os.path.join(_HERE, os.pardir, "lpcbench", "data")
+    golden = np.fromfile(os.path.join(data, "ref_feats.f32"),
+                         np.float32).reshape(-1, 36)
+    x = np.fromfile(os.path.join(data, "speech.s16"), np.int16)[:200 * 160]
+    _, speech, _ = features.compute_features(
+        features.init_state(1), torch.as_tensor(x.astype(np.float32)[None]))
+    log_e = []
+    for peak in (5.0, 6.0, 7.0, 8.0):
+        for k in range(0, 18, 2):
+            for wide in (False, True):
+                e = np.zeros(18, np.float32)
+                e[k] = peak
+                if wide:
+                    e[max(k - 1, 0)] = e[min(k + 1, 17)] = peak / 2
+                log_e.append(e)
+    peaky = dsp.dct(torch.as_tensor(np.stack(log_e))).numpy()
+    peaky[:, 0] -= 4.0
+    return {"golden": golden[:, :18], "speech": speech[0, :, :18].numpy(),
+            "zeros": np.zeros((4, 18), np.float32), "peaky": peaky}
+
+
+def _lpc_batch(shape):
+    """Rows of every kind in turn, as many as `shape` holds, each followed
+    by 18 other floats (the features' other columns), and the kind of each
+    (flat)."""
+    rows = _lpc_rows()
+    n = int(np.prod(shape))
+    order = [(k, rows[k][i % len(rows[k])])
+             for i in range(n) for k in LPC_KINDS][:n]
+    tail = np.random.RandomState(0).randn(n, 18).astype(np.float32)
+    wide = np.concatenate([np.stack([r for _, r in order]), tail], axis=1)
+    return wide.reshape(shape + (36,)), np.array([k for k, _ in order])
+
+
+def _lpc_plain_steps(cep: torch.Tensor) -> torch.Tensor:
+    """The Levinson steps each row of lpc_from_cepstrum_plain ran (its
+    reflection coefficients are 0 from the step where it stopped)."""
+    from lpcnet_tpu_torch.ops import dsp
+    x = dsp.interp_band_gain(dsp._band_energies(cep))
+    ac = dsp.inverse_transform(x.to(torch.complex64))[..., :17]
+    ac0 = ac[..., 0] + ac[..., 0] * 1e-4 + float(np.float32(26.0 / 38.0))
+    lag = torch.as_tensor(dsp._LAG, device=cep.device)
+    _, rc, _ = dsp.levinson(torch.cat([ac0[..., None], ac[..., 1:] * lag],
+                                      dim=-1))
+    return (rc != 0).sum(-1).to(torch.int32)
+
+
+def _lpc_steps(cep: torch.Tensor) -> torch.Tensor:
+    """The Levinson steps the kernel ran on each row (its steps output)."""
+    from lpcnet_tpu_torch.kernels import lpc_cuda
+    from lpcnet_tpu_torch.ops import dsp
+    x = dsp.interp_band_gain(dsp._band_energies(cep))
+    y = torch.fft.irfft(x.to(torch.complex64), n=320, dim=-1)
+    steps = torch.full(cep.shape[:-1], -1, dtype=torch.int32,
+                       device=cep.device)
+    lpc_cuda.lpc_from_lags(y, torch.as_tensor(dsp._LAG, device=cep.device),
+                           steps=steps)
+    return steps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", LPC_SHAPES,
+                         ids=["x".join(map(str, s)) for s in LPC_SHAPES])
+def test_lpc_kernel_matches_plain(card, shape):
+    """ops/dsp.lpc_from_cepstrum on a CUDA tensor launches the kernel once
+    and gives the plain version's lpc and err on the same card bit for bit,
+    every kind of row; the kernel's early-exit decisions are the plain
+    recursion's, row for row."""
+    from lpcnet_tpu_torch.kernels import lpc_cuda
+    from lpcnet_tpu_torch.ops import dsp
+    feats, kinds = _lpc_batch(shape)
+    x = torch.as_tensor(feats, device=card)
+    before = lpc_cuda.launches
+    lpc, err = dsp.lpc_from_cepstrum(x)
+    assert lpc_cuda.launches == before + 1
+    assert lpc.shape == shape + (16,) and err.shape == shape
+    want_lpc, want_err = dsp.lpc_from_cepstrum_plain(x)
+    differ = ((lpc != want_lpc).any(-1) | (err != want_err)).reshape(-1)
+    print(f"[lpc] {shape}: rows that differ from the plain version "
+          f"{int(differ.sum())} of {differ.numel()}")
+    assert not bool(differ.any()), {
+        k: int(differ.cpu().numpy()[kinds == k].sum()) for k in LPC_KINDS}
+    assert torch.equal(_lpc_steps(x), _lpc_plain_steps(x))
+
+
+@pytest.mark.cuda
+def test_lpc_kernel_takes_the_early_exit_on_peaky_rows(card):
+    """Most peaky rows stop before the last step, in the kernel and in the
+    plain recursion alike, and no row of the golden or speech features or
+    zeros does."""
+    for kind, cep in _lpc_rows().items():
+        x = torch.as_tensor(cep, device=card)
+        steps = _lpc_steps(x)
+        assert torch.equal(steps, _lpc_plain_steps(x)), kind
+        early = int((steps < 16).sum())
+        if kind == "peaky":
+            assert len(cep) // 2 < early < len(cep)
+        else:
+            assert early == 0, kind
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1,), (1024, 50)], ids=["1", "1024x50"])
+def test_lpc_graphed_call_bit_identical_to_eager(card, shape):
+    """lpc_from_cepstrum captured in a CUDA graph: the capture launches the
+    kernel once from the host, a replay none, and each replay gives the
+    eager call's bits on the inputs it finds (two sets)."""
+    from lpcnet_tpu_torch.kernels import lpc_cuda
+    from lpcnet_tpu_torch.ops import dsp
+    feats, _ = _lpc_batch(shape)
+    inputs = [torch.as_tensor(feats, device=card),
+              torch.as_tensor(feats[..., ::-1].copy(), device=card)]
+    eager = [dsp.lpc_from_cepstrum(x) for x in inputs]
+    static = inputs[0].clone()
+    g = torch.cuda.CUDAGraph()
+    before = lpc_cuda.launches
+    with torch.cuda.graph(g):
+        out = dsp.lpc_from_cepstrum(static)
+    assert lpc_cuda.launches == before + 1
+    for x, want in zip(inputs, eager):
+        static.copy_(x)
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+    assert lpc_cuda.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,per_call", [("synthesize-flat", 1),
+                                           ("PLCEngine", 2)])
+def test_lpc_launches_per_entry_point_call(card, case, per_call):
+    """The kernel launches once per Synthesizer.synthesize call (the
+    conditioning of all its frames) and twice per PLCEngine step (the
+    feature pass and the frame network), eager and in a capture; a replay
+    launches nothing from the host."""
+    from lpcnet_tpu_torch.kernels import lpc_cuda
+    from lpcnet_tpu_torch.utils import graphs
+    step, method, state, args = _graph_case(card, case, 1, 3)
+    before = lpc_cuda.launches
+    with graphs.disabled():
+        _chain(method, state, args)
+    assert lpc_cuda.launches == before + 3 * per_call
+    graphs.captures.clear()
+    _chain(method, state, args)
+    assert graphs.captures == {step.name: 1}
+    assert lpc_cuda.launches == before + 5 * per_call
+
+
+@pytest.mark.cuda
+def test_lpc_kernel_refuses_a_tensor_that_requires_grad(card):
+    from lpcnet_tpu_torch.kernels import lpc_cuda
+    from lpcnet_tpu_torch.ops import dsp
+    x = torch.zeros(2, 320, device=card, requires_grad=True)
+    before = lpc_cuda.launches
+    with pytest.raises(ValueError, match="no backward"):
+        lpc_cuda.lpc_from_lags(x, torch.as_tensor(dsp._LAG, device=card))
+    assert lpc_cuda.launches == before
 
 
 def _train_run(card, name):

@@ -379,8 +379,9 @@ def test_teacher_shapes_are_checked_before_the_graphed_call():
 # steps, the k-means updates, the data-parallel step, the tools' steps)
 GRAPHED_MODULES = (
     ["features", "plc", "dred", "vocoder", "data", "kernels.sample_scan",
-     "kernels.sample_cuda", "kernels.burg_cuda", "parallel.mesh",
-     "tools.eval_plc", "tools.fit_pade", "tools.train_codebooks"]
+     "kernels.sample_cuda", "kernels.burg_cuda", "kernels.lpc_cuda",
+     "parallel.mesh", "tools.eval_plc", "tools.fit_pade",
+     "tools.train_codebooks"]
     + [d + "." + f[:-3] for d in ("ops", "models", "training", "codec")
        for f in sorted(os.listdir(os.path.join(PKG, d)))
        if f.endswith(".py") and f != "__init__.py"])

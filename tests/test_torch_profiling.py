@@ -81,17 +81,19 @@ def test_parse_trace_without_device_events(tmp_path):
 def test_sample_kernel_names_are_the_sources_entry_points():
     """SAMPLE_KERNELS are the __global__ functions of the sample loop's
     CUDA sources, every one of them. Burg's kernel (csrc/burg_cepstrum.cu)
-    is the one other, and its name holds none of them: the readers that
-    match by substring count it among the non-sample kernels."""
-    names, burg = set(), set()
+    and the LPC kernel (csrc/lpc_levinson.cu) are the others, and their
+    names hold none of them: the readers that match by substring count
+    them among the non-sample kernels."""
+    names, others = set(), set()
     for f in os.listdir(CSRC):
         with open(os.path.join(CSRC, f)) as fh:
             found = set(re.findall(r"__global__\s+void\s+(?:__launch_bounds"
                                    r"__\([^)]*\)\s+)?(\w+)", fh.read()))
-        (burg if f == "burg_cepstrum.cu" else names).update(found)
+        (others if f in ("burg_cepstrum.cu", "lpc_levinson.cu")
+         else names).update(found)
     assert names == set(profiling.SAMPLE_KERNELS)
-    assert burg == {"burg_cepstrum_kernel"}
-    assert not any(k in n for n in burg for k in profiling.SAMPLE_KERNELS)
+    assert others == {"burg_cepstrum_kernel", "lpc_levinson_kernel"}
+    assert not any(k in n for n in others for k in profiling.SAMPLE_KERNELS)
 
 
 def test_trace_on_the_cpu_writes_a_readable_trace(tmp_path):
